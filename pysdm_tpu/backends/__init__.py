@@ -1,7 +1,7 @@
 """Backend configuration.
 
-The engine has a single computational backend — JAX/XLA — which targets TPU,
-CPU and GPU alike; the classes here only carry dtype policy + formulae (the
+The engine has a single computational backend — JAX/XLA — which targets GPU
+and CPU alike; the classes here only carry dtype policy + formulae (the
 reference's CPU/GPU backend split, ``PySDM/backends/__init__.py``, does not
 apply: XLA compiles the same traced program for every device). ``CPU`` / ``GPU``
 names are provided as aliases so reference-style scripts work unchanged.
@@ -28,7 +28,8 @@ class JaxBackend:
 
 
 class TPU(JaxBackend):
-    """float32 compute by default (MXU/VPU-friendly); int64 multiplicities"""
+    """float32 compute by default; int64 multiplicities (the class name is
+    historical: it is the float32 dtype policy, on any device)"""
 
     def __init__(self, formulae=None, double_precision=False, mult_dtype=None):
         super().__init__(formulae, double_precision, mult_dtype)

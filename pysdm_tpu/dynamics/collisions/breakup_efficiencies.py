@@ -3,7 +3,6 @@
 
 
 class ConstEb:
-    pallas_safe = True
     required_attributes = ()
 
     def __init__(self, Eb=1.0):

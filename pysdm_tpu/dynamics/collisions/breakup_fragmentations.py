@@ -28,7 +28,6 @@ def apply_limiters(frag_volume, total_volume, *, vmin=0.0, nfmax=None):
 
 
 class AlwaysN:
-    pallas_safe = True
     required_attributes = ("water mass",)
 
     def __init__(self, n=1):
@@ -44,7 +43,6 @@ class AlwaysN:
 
 
 class ConstantMass:
-    pallas_safe = True
     """every fragment has the prescribed mass"""
 
     required_attributes = ("water mass",)
@@ -62,7 +60,6 @@ class ConstantMass:
 
 
 class Exponential:
-    pallas_safe = True
     """exponentially-distributed fragment size (reference expon_frag semantics)"""
 
     required_attributes = ("water mass",)
@@ -287,7 +284,7 @@ class LowList1982Nf:
     Rf/Rs/Rd from collision kinetic energy and Weber numbers, then a
     per-type Gaussian/lognormal mixture sampled by inverse-CDF. Branchy
     per-pair control flow becomes where-selection over all branches —
-    redundant VPU lanes are cheaper than divergence bookkeeping on TPU."""
+    redundant elementwise lanes are cheaper than divergence bookkeeping."""
 
     required_attributes = (
         "water mass", "volume", "radius", "relative fall velocity",

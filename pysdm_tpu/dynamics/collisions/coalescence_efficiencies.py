@@ -5,7 +5,6 @@ import jax.numpy as jnp
 
 
 class ConstEc:
-    pallas_safe = True
     required_attributes = ()
 
     def __init__(self, Ec=1.0):
@@ -19,7 +18,6 @@ class ConstEc:
 
 
 class Berry1967:
-    pallas_safe = True
     """Ec from the Berry 1967 linear-collection-efficiency fit"""
 
     required_attributes = ("radius",)

@@ -1,7 +1,7 @@
 """Collision dynamic: SDM Monte-Carlo coalescence (and breakup, stage 7).
 
 Orchestration parity with reference ``PySDM/dynamics/collisions/collision.py``;
-TPU-first re-design of the step itself (SURVEY.md §7 deltas #3/#4): the whole
+Re-design of the step itself (SURVEY.md §7 deltas #3/#4): the whole
 substep — croupier shuffle, pairing, kernel evaluation, Shima-eq.20
 normalization, gamma draw, coalescence update, rate bookkeeping — is one fused
 vectorized trace over the particle axis; the adaptive per-cell ``dt_left`` loop
@@ -17,7 +17,6 @@ import jax.numpy as jnp
 from ...impl.attributes import AttributeResolver
 from ...ops import collisions as coll_ops
 from ...ops import segments as seg_ops
-from ...ops.pallas.scan import _use_pallas as _pallas_enabled
 from .coalescence_efficiencies import ConstEc
 from .breakup_efficiencies import ConstEb
 from .breakup_fragmentations import AlwaysN
@@ -138,8 +137,7 @@ class Collision:
         u01_injection = getattr(self, "u01_injection", False)
         # sort-free mirror croupier (ops/pairing.py): single-cell domains
         # (0D box / parcel) pair slot o with (K - o) mod N via flip+roll —
-        # removes the bucket-shuffle sort entirely (the measured 79% of a
-        # box collision step, PERF_NOTES.md roofline). The sort croupier
+        # removes the bucket-shuffle sort entirely. The sort croupier
         # remains for multi-cell domains, for u01-injection parity mode, and
         # on explicit request (croupier="sort").
         use_mirror = (
@@ -171,9 +169,8 @@ class Collision:
                 else:
                     # raw bits: the packed-key shuffle consumes uint32 directly
                     u_sh = jax.random.bits(k_sh, (n_sd,), jnp.uint32)
-                # one variadic sort carries the whole state as payload operands
-                # (TPU gathers/scatters are element-at-a-time — the sort is the
-                # only shuffle) and the state stays in sorted order afterwards
+                # one variadic sort carries the whole state as payload
+                # operands and the state stays in sorted order afterwards
                 (
                     particles,
                     sorted_cell,
@@ -218,7 +215,6 @@ class Collision:
                     dt_left,
                     counters["collision_n_substep"],
                     _,
-                    dt_todo,
                 ) = coll_ops.scale_prob_adaptive(
                     prob=prob,
                     mult_s=mult_s,
@@ -236,177 +232,6 @@ class Collision:
                 prob = prob * prob_scale
 
             rand = draw("collision_gamma", k_gam)
-
-            # fused Pallas fast path (TPU, coalescence-only, integer
-            # multiplicities; adaptive and multi-extensive-row supported):
-            # probability, gamma capping and the Shima update in ONE pass
-            # over the sorted state (ops/pallas/collision.py) instead of
-            # ~15 materialized arrays. A mirror-croupier variant feeds the
-            # involution partner rows instead of roll(+-1) neighbor copies.
-            use_fused = (
-                not enable_breakup
-                and jnp.issubdtype(mult_s.dtype, jnp.integer)
-                and particles.maximum.shape[0] == 0  # max-merge: XLA path
-                and _pallas_enabled()
-            )
-            if use_fused:
-                from ...ops.pallas.collision import (
-                    fused_coalesce,
-                    fused_coalesce_mirror,
-                )
-                from ...ops.pallas.scan import _interpret_mode
-
-                # per-cell scale: the adaptive dt_todo/dt factor, or the
-                # uniform 1/substeps
-                if adaptive:
-                    cell_scale = norm * (dt_todo / dt)
-                else:
-                    cell_scale = norm * prob_scale
-                if use_mirror:
-                    from ...ops.pallas.collision import (
-                        LANES as _LANES,
-                        BLOCK_R as _BLOCK_R,
-                        fused_coalesce_mirror_blocks,
-                    )
-
-                    use_blocks = (
-                        n_sd % (_BLOCK_R * _LANES) == 0
-                        and getattr(kernel, "pallas_safe", False)
-                    )
-                    if use_blocks:
-                        # partner fetch fully in-kernel (dynamic-block index
-                        # maps + VMEM rotations): no XLA dynamic roll, no
-                        # per-slot rand row (in-kernel pair-keyed PRF)
-                        attr_rows = jnp.stack(
-                            [attrs_a[name] for name in sorted(attr_names)]
-                        )
-                        seed = jax.random.bits(k_gam, (), jnp.uint32)
-                        (
-                            mult_s, ext_s, rate_c, deficit_c, coal_c,
-                        ) = fused_coalesce_mirror_blocks(
-                            mult_s, ext_s, attr_rows, sorted(attr_names),
-                            lambda a, b: kernel.pairwise(formulae, a, b),
-                            cell_scale[0], pairing.K, seed,
-                            interpret=_interpret_mode(),
-                        )
-                        for cname, val in (
-                            ("collision_rate", rate_c),
-                            ("collision_rate_deficit", deficit_c),
-                            ("coalescence_rate", coal_c),
-                        ):
-                            c = counters[cname]
-                            if "rate_step_sum_max" in counters:
-                                counters["rate_step_sum_max"] = jnp.maximum(
-                                    counters["rate_step_sum_max"], val
-                                )
-                            if jnp.issubdtype(c.dtype, jnp.integer):
-                                add = jnp.round(val).astype(c.dtype)
-                            else:
-                                add = val.astype(c.dtype)
-                            counters[cname] = c + add
-                        particles = particles.replace(
-                            multiplicity=mult_s, extensive=ext_s
-                        )
-                        return particles, counters, key, dt_left
-                    kernnorm = kernel_vals.astype(ftype) * cell_scale[0]
-                    mult_s, ext_s, rate, deficit, coal = fused_coalesce_mirror(
-                        mult_s, ext_s, kernnorm, rand, is_first,
-                        pairing.shift, interpret=_interpret_mode(),
-                    )
-                else:
-                    norm_ext = jnp.concatenate(
-                        [cell_scale, jnp.zeros((1,), norm.dtype)]
-                    )
-                    kernnorm = kernel_vals.astype(ftype) * norm_ext[sorted_cell]
-                    mult_s, ext_s, rate, deficit, coal = fused_coalesce(
-                        mult_s, ext_s, kernnorm, rand, is_first,
-                        interpret=_interpret_mode(),
-                    )
-                for cname, row in (
-                    ("collision_rate", rate),
-                    ("collision_rate_deficit", deficit),
-                    ("coalescence_rate", coal),
-                ):
-                    counters[cname] = coll_ops.accumulate_counter(
-                        counters[cname], row, cell_start, n_cell,
-                        counters=counters,
-                    )
-                particles = particles.replace(
-                    multiplicity=mult_s, extensive=ext_s
-                )
-                return particles, counters, key, dt_left
-
-            # fused mirror-breakup fast path (ops/pallas/breakup.py): the
-            # whole bounce/coalesce/breakup substep in one kernel — the
-            # XLA chain is launch-overhead-bound at bench scale (breakup
-            # roofline, PERF_NOTES.md). Needs elementwise-safe kernel/
-            # efficiency/fragmentation closures and the blocks geometry.
-            if enable_breakup and use_mirror:
-                from ...ops.pallas.collision import (
-                    LANES as _LANES,
-                    BLOCK_R as _BLOCK_R,
-                )
-
-                eligible = (
-                    not handle_all
-                    and jnp.issubdtype(mult_s.dtype, jnp.integer)
-                    and particles.maximum.shape[0] == 0
-                    and n_sd % (_BLOCK_R * _LANES) == 0
-                    and _pallas_enabled()
-                    and all(
-                        getattr(fn_, "pallas_safe", False)
-                        for fn_ in (kernel, ec_fn, eb_fn, frag)
-                    )
-                )
-                if eligible:
-                    from ...ops.pallas.breakup import (
-                        fused_breakup_mirror_blocks,
-                    )
-                    from ...ops.pallas.scan import _interpret_mode
-
-                    if adaptive:
-                        cell_scale = norm * (dt_todo / dt)
-                    else:
-                        cell_scale = norm * prob_scale
-                    names_sorted = sorted(attr_names)
-                    attr_rows = jnp.stack(
-                        [attrs_a[nm] for nm in names_sorted]
-                    )
-                    seed = jax.random.bits(k_gam, (), jnp.uint32)
-                    wm_idx = particles.ext_names.index("signed water mass")
-                    (
-                        mult_s, ext_s, rate_c, deficit_c, coal_c, brk_c,
-                        brkdef_c,
-                    ) = fused_breakup_mirror_blocks(
-                        mult_s, ext_s, wm_idx, attr_rows, names_sorted,
-                        lambda a, b: kernel.pairwise(formulae, a, b),
-                        lambda a, b: ec_fn.pairwise(formulae, a, b),
-                        lambda a, b: eb_fn.pairwise(formulae, a, b),
-                        lambda a, b, u: frag.pairwise(formulae, a, b, u)[1],
-                        cell_scale[0], pairing.K, seed, max_multiplicity,
-                        interpret=_interpret_mode(),
-                    )
-                    for cname, val in (
-                        ("collision_rate", rate_c),
-                        ("collision_rate_deficit", deficit_c),
-                        ("coalescence_rate", coal_c),
-                        ("breakup_rate", brk_c),
-                        ("breakup_rate_deficit", brkdef_c),
-                    ):
-                        c = counters[cname]
-                        if "rate_step_sum_max" in counters:
-                            counters["rate_step_sum_max"] = jnp.maximum(
-                                counters["rate_step_sum_max"], val
-                            )
-                        if jnp.issubdtype(c.dtype, jnp.integer):
-                            add = jnp.round(val).astype(c.dtype)
-                        else:
-                            add = val.astype(c.dtype)
-                        counters[cname] = c + add
-                    particles = particles.replace(
-                        multiplicity=mult_s, extensive=ext_s
-                    )
-                    return particles, counters, key, dt_left
 
             gamma, counters = coll_ops.compute_gamma(
                 prob, rand, mult_s, sorted_cell, is_first, n_cell, counters,

@@ -12,8 +12,6 @@ class Golovin:
     """sum-of-volumes kernel with analytic solution (Golovin 1963)"""
 
     required_attributes = ("volume",)
-    # pairwise is pure elementwise jnp: safe to evaluate inside Pallas
-    pallas_safe = True
 
     def __init__(self, b):
         self.b = b
@@ -42,8 +40,6 @@ class Golovin:
 
 class ConstantK:
     required_attributes = ("volume",)
-    # pairwise is pure elementwise jnp: safe to evaluate inside Pallas
-    pallas_safe = True
 
     def __init__(self, a):
         self.a = a
@@ -59,8 +55,6 @@ class Linear:
     """K = a + b * (v + v') (reference ``collision_kernels/linear.py``)"""
 
     required_attributes = ("volume",)
-    # pairwise is pure elementwise jnp: safe to evaluate inside Pallas
-    pallas_safe = True
 
     def __init__(self, a, b):
         self.a = a
@@ -79,7 +73,6 @@ class Geometric:
     K = E_c * pi * (r + r')^2 * |v_t - v_t'|"""
 
     required_attributes = ("radius", "relative fall velocity")
-    pallas_safe = True
 
     def __init__(self, collection_efficiency=1.0, x="volume"):
         self.collection_efficiency = collection_efficiency
@@ -103,7 +96,6 @@ class SimpleGeometric:
     K = C * (r + r')^2 * |A - A'|"""
 
     required_attributes = ("radius", "area")
-    pallas_safe = True
 
     def __init__(self, C):
         self.C = C

@@ -121,7 +121,7 @@ class Condensation:
             env = dict(sim["env"])
             counters = dict(sim["counters"])
             # the solver requires cell-sorted drops (cumsum-based per-cell
-            # coupling — no TPU scatters); when the builder's shared-sort
+            # coupling — no scatters); when the builder's shared-sort
             # analysis proves the state already enters cell-sorted (the
             # previous step's collision shuffle — ONE sort per step total),
             # only the segment starts are recomputed. Dead drops then sit

@@ -1,7 +1,7 @@
 """Displacement dynamic: particle advection by the flow + sedimentation
 (parity: reference ``PySDM/dynamics/displacement.py``).
 
-TPU-first deltas: the adaptive substep count (reference
+Design deltas: the adaptive substep count (reference
 ``upload_courant_field``, host-side doubling loop against the
 ``|delta courant| -> error`` estimate of Arabas et al. 2015 eqs. 13-16) is
 computed *inside* the jitted step from the current courant fields, so

@@ -6,7 +6,7 @@ couplings (``examples/.../Shipway_and_Hill_2012/mpdata_1d.py``,
 the solver to the external PyMPDATA package and pays a host<->device field
 download per step; here the advection runs inside the jitted composed step on
 the env-state fields, so the Lagrangian<->Eulerian coupling is a pure dataflow
-edge that XLA can schedule (the TPU-native equivalent of the reference's
+edge that XLA can schedule (the equivalent of the reference's
 async-thread overlap).
 
 Per-step dataflow (mirrors the reference's buffer shuttling):

@@ -3,7 +3,7 @@
 (with Beard-style small-radius correction), RogersYau (in physics), and
 PowerSeries.
 
-TPU-first: the lookup table is built once on host (scipy RBF over the
+The lookup table is built once on host (scipy RBF over the
 published Table 2 data, identical grid: 601 points over [0, 0.6 cm]) and the
 runtime evaluation is a vectorized gather + linear interpolation.
 """
@@ -73,18 +73,11 @@ def gunn_kinzer_v_term(const, radius, small_r_limit=40e-6):
     a_np, b_np = _gk_table(small_r_limit)
     # reference interpolation kernel (terminal_velocity_methods.py:16-25):
     # r_id = int(factor*r); output = a[r_id] + ((factor*r) % 1)/factor * b[r_id]
-    # TPU: the 601-entry table lookup runs as a one-hot matmul on the MXU
-    # (measured ~2x a dynamic gather at 2^17 drops; gathers on TPU lower to
-    # an element-at-a-time path) — exact, since each one-hot row selects a
-    # single table entry
     tab = jnp.asarray(np.stack([a_np, b_np], axis=1), dtype=jnp.float32)
     scaled = jnp.clip(radius, 0.0, _MAX_RADIUS) * _FACTOR
     idx = jnp.clip(scaled.astype(jnp.int32), 0, tab.shape[0] - 1)
     r_rest = (scaled - idx) / _FACTOR
-    one_hot = (
-        idx[:, None] == jnp.arange(tab.shape[0], dtype=jnp.int32)[None, :]
-    ).astype(jnp.float32)
-    ab = one_hot @ tab  # (n, 2) on the MXU
+    ab = tab[idx]
     value = ab[:, 0].astype(radius.dtype) + r_rest * ab[:, 1].astype(
         radius.dtype
     )

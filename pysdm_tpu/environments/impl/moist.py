@@ -1,7 +1,7 @@
 """Moist-air thermodynamics shared by environments
 (parity: reference ``PySDM/environments/impl/moist.py``).
 
-TPU-first design: the reference's current/predicted double-buffer with
+Design: the reference's current/predicted double-buffer with
 swap-on-notify becomes a pair of key groups in the functional env-state dict
 (``thd`` vs ``pred_thd`` ...); the swap is a pure "commit" function appended to
 the composed step (running after all dynamics, like the reference's

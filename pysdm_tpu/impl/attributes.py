@@ -58,17 +58,9 @@ def canonical_ext_name(name):
 
 
 def _env_at_drops(env_row, cell_id):
-    """broadcast a per-cell env row to drops. TPU: dynamic gathers lower to
-    an element-at-a-time path (~12 ms per 2.56M-drop row), so small tables
-    ride an exact one-hot matmul on the MXU instead."""
-    n_cell = env_row.shape[0]
-    if n_cell > 8192:
-        return env_row[cell_id]
-    one_hot = (
-        jnp.clip(cell_id, 0, n_cell - 1).astype(jnp.int32)[:, None]
-        == jnp.arange(n_cell, dtype=jnp.int32)[None, :]
-    ).astype(env_row.dtype)
-    return one_hot @ env_row
+    """broadcast a per-cell env row to drops (indices clamped into the
+    table: dead drops may carry any cell id)"""
+    return env_row[jnp.clip(cell_id, 0, env_row.shape[0] - 1)]
 
 
 class AttributeResolver:

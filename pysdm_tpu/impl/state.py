@@ -1,20 +1,30 @@
 """Particle state pytree.
 
-TPU-first replacement for the reference's Storage/Index/IndexedStorage object
-zoo (reference ``PySDM/impl/particle_attributes.py`` and
+Replacement for the reference's Storage/Index/IndexedStorage object zoo
+(reference ``PySDM/impl/particle_attributes.py`` and
 ``backends/impl_common/``): the state is a fixed-size structure-of-arrays
 pytree. There is no permutation index and no compaction — particle death is
 represented by multiplicity 0 (masked out of all reductions), keeping shapes
 static for XLA (SURVEY.md §7 design delta #1).
 """
 
-from flax import struct
+import dataclasses
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 
-@struct.dataclass
+@functools.partial(
+    jax.tree_util.register_dataclass,
+    data_fields=(
+        "multiplicity", "extensive", "maximum", "cell_id", "cell_origin",
+        "position_in_cell",
+    ),
+    meta_fields=("ext_names", "max_names"),
+)
+@dataclasses.dataclass(frozen=True)
 class ParticleState:
     multiplicity: jax.Array  # (n_sd,) int
     extensive: jax.Array  # (n_ext, n_sd) float — conserved sums under coalescence
@@ -22,8 +32,11 @@ class ParticleState:
     cell_id: jax.Array  # (n_sd,) int
     cell_origin: jax.Array  # (n_dims, n_sd) int ((0, n_sd) for 0D)
     position_in_cell: jax.Array  # (n_dims, n_sd) float ((0, n_sd) for 0D)
-    ext_names: tuple = struct.field(pytree_node=False, default=())
-    max_names: tuple = struct.field(pytree_node=False, default=())
+    ext_names: tuple = ()
+    max_names: tuple = ()
+
+    def replace(self, **changes):
+        return dataclasses.replace(self, **changes)
 
     @property
     def n_sd(self):
@@ -56,10 +69,7 @@ class ParticleState:
         )
 
     def permute(self, order):
-        """reorder all per-particle arrays by ``order``. NOTE: TPU gathers run
-        element-at-a-time (~13 ms per 2^20 f32 on v5e) — hot paths should ride
-        payload operands through ``ops.segments.bucket_shuffle_state`` instead.
-        Particle identity order is not semantically meaningful (the reference
+        """reorder all per-particle arrays by ``order``. Particle identity order is not semantically meaningful (the reference
         instead carries a permutation ``idx``, ``impl/particle_attributes.py``)."""
         return self.replace(
             multiplicity=self.multiplicity[order],

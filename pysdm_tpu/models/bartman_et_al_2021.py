@@ -3,7 +3,8 @@
 ``Arabas_et_al_2015/example_benchmark.py:26-66``): wall time of the 2D
 kinematic warm-rain case vs n_sd per gridbox, on the available backend(s).
 The reference sweeps CPU-sync/CPU-async/GPU; here the sweep is over
-backend classes (CPU = emulated, TPU = real chip) and SD counts."""
+backend classes (CPU = the float64 JaxBackend, TPU = its float32
+subclass) and SD counts."""
 
 import time
 

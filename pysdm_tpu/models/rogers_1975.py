@@ -3,7 +3,7 @@ ODE system for a monodisperse population in a constant-updraft parcel
 (reference ``examples/PySDM_examples/Rogers_1975/fig_1.ipynb``; eqs. 1-10 +
 appendix A.1-A.3 of the paper). The reference notebook integrates with
 scipy LSODA over a Pint-aware state; here the same system is a fixed-step
-RK4 under ``lax.scan`` — fully jittable, runs on TPU."""
+RK4 under ``lax.scan`` — fully jittable, runs on any JAX device."""
 
 from collections import namedtuple
 

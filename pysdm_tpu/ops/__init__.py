@@ -1,2 +1,2 @@
-"""vectorized/XLA kernel layer (the TPU-native equivalent of the reference's
-backend methods classes); Pallas variants live in ops/pallas/"""
+"""vectorized/XLA kernel layer (the equivalent of the reference's backend
+methods classes); the hand-written GPU kernel lives in ops/pallas/"""

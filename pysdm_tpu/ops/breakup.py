@@ -2,7 +2,7 @@
 
 Semantics-parity with the reference CPU kernels
 (``PySDM/backends/impl_numba/methods/collisions_methods.py:62-243,248-311``),
-re-designed for TPU: the reference's per-pair serial loop in
+re-designed for vectorized execution: the reference's per-pair serial loop in
 ``compute_transfer_multiplicities`` is a geometric recursion
 
     new_mult_k(g)  = mult_k * alpha * (1+beta)^(g-1)

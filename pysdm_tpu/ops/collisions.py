@@ -9,18 +9,17 @@ branch-free vectorized updates over sorted particle slots:
   atomics; rate counters use deterministic segment sums instead of atomic adds
   (SURVEY.md §7 delta #4);
 - per-pair quantities are computed at every sorted slot p (with p+1 as the
-  partner) and masked by ``is_first_in_pair`` — redundant lanes are free on the
-  VPU compared to the reference's pair-compaction bookkeeping.
+  partner) and masked by ``is_first_in_pair`` — redundant lanes cost less
+  than the reference's pair-compaction bookkeeping.
 
 Conventions: within a pair, ``j`` is the particle with the not-smaller
 multiplicity, ``k`` the other (reference ``pair_methods.py:127-140``).
 
-TPU dtype policy: multiplicities may be stored as int64 (bit-exact vs the
-reference) or as float64 (exact for integers < 2^53 — far above the
+Multiplicity dtype policy: multiplicities may be stored as int64 (bit-exact
+vs the reference) or as float64 (exact for integers < 2^53 — far above the
 reference's own multiplicity cap of 2^63/2e5 ~ 4.6e13, reference
-``collision.py:30-37``): int64 arithmetic (especially ``//``) is
-software-emulated on TPU, while the f64 path only needs an
-exactly-corrected floor division (``floor_div`` below).
+``collision.py:30-37``); the f64 path needs an exactly-corrected floor
+division (``floor_div`` below).
 """
 
 import jax.numpy as jnp
@@ -55,9 +54,8 @@ def floor_div(a, b):
 
 def capped_floor_div(a, b, cap_f):
     """exact min(cap, floor(a/b)) for non-negative int64 a, b>0 and an
-    integral f32 cap, WITHOUT the 64-bit division (software-emulated i64
-    divide costs ~0.64 ms per 2^20 lanes on TPU v5e vs ~0.01 ms for a
-    multiply pass): start from the f32 quotient estimate, clamp by the cap,
+    integral f32 cap, without a 64-bit division: start from the f32
+    quotient estimate, clamp by the cap,
     then walk to the exact answer with i64 multiply-compare steps. The f32
     estimate is within +-5 of floor(a/b) whenever the result matters (result
     <= cap <= 2^24, the exact-integer range of the f32 pipeline that produced
@@ -134,9 +132,8 @@ def scale_prob_adaptive(
     mj = jnp.maximum(mult_s, mult_p)
     mk = jnp.minimum(mult_s, mult_p)
     # prop only feeds the f32 pacing heuristic dt_optimal below, so the
-    # i64 floor division (software-emulated, ~60x a multiply pass on TPU)
-    # is replaced by its f32 image; differs from exact floor only at ULP
-    # knife-edges that perturb dt_todo by O(1e-7) relative
+    # i64 floor division is replaced by its f32 image; differs from exact
+    # floor only at ULP knife-edges that perturb dt_todo by O(1e-7) relative
     if jnp.issubdtype(mj.dtype, jnp.integer):
         prop = jnp.floor(
             mj.astype(ftype) / jnp.maximum(mk, 1).astype(ftype)
@@ -170,10 +167,7 @@ def scale_prob_adaptive(
         stats_dt_min = jnp.minimum(
             stats_dt_min, jnp.where(jnp.isinf(per_cell_opt), stats_dt_min, per_cell_opt)
         )
-    # dt_todo/dt is the per-cell probability scale factor — returned so the
-    # fused Pallas path can fold it into its kernel-value input instead of
-    # consuming the already-scaled prob
-    return prob, new_dt_left, stats_n_substep, stats_dt_min, dt_todo
+    return prob, new_dt_left, stats_n_substep, stats_dt_min
 
 
 def _cell_start_of(sorted_cell, n_cell):
@@ -184,8 +178,7 @@ def _cell_start_of(sorted_cell, n_cell):
 
 def accumulate_counter(counter, values, cell_start, n_cell, counters=None):
     """add per-cell sums of ``values`` to a rate counter. The sum runs in
-    float32 regardless of the counter dtype: an int64 cumsum costs ~1.1 ms per
-    2^20 slots on TPU v5e (emulated) vs ~0.2 ms in f32, and rate counters are
+    float32 regardless of the counter dtype: rate counters are
     diagnostics (exact below 2^24 events per readout; ~1e-7 relative beyond —
     the reference accumulates exactly via int64 atomics,
     ``collisions_methods.py:523-560``). When the ``counters`` dict carries a

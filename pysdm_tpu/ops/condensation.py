@@ -6,18 +6,19 @@ per-cell coupling of (thd, qv, rhod) with per-droplet implicit mass solves
 (``step_impl`` 256-356, ``calculate_ml_new`` 408-572) and Richardson-style
 per-cell substep adaptation (``adapt_substeps`` 178-228).
 
-TPU-first re-design (SURVEY.md §7 delta #5):
-- the per-droplet root find is a *bracketed bisection over the whole particle
-  axis at once* (the reference GPU backend's choice, ``bisection.py``, rather
-  than the CPU's branchy TOMS748) with a masked early-exit while_loop;
+Design (SURVEY.md §7 delta #5):
+- the per-droplet root find is a bracketed bisection with a masked early
+  exit (the reference GPU backend's choice, ``bisection.py``, rather than
+  the CPU's branchy TOMS748). ``make_drop_solver`` writes it once, for
+  arrays of drops: XLA runs it over the whole particle axis, and on a GPU
+  in float32 the Pallas-Triton kernel (``ops/pallas/condensation.py``)
+  runs the same function over blocks of drops held in registers;
 - particles must arrive sorted by cell id (the Condensation dynamic sorts):
   per-cell reductions (liquid mass ml, success flags) are deterministic
-  cumsum differences over the cell segments — TPU scatter-adds are serial;
-- cell->drop broadcasting is ONE contiguous row gather of the packed cell
-  state per substep (TPU gathers cost per element fetched; fetching one
-  contiguous row beats eight strided field gathers), and the thermodynamic
-  fields (T, p, RH, ...) are recomputed elementwise at drop granularity —
-  redundant VPU flops are cheaper than memory-bound gathers;
+  cumsum differences over the cell segments, with no scatter;
+- cell->drop broadcasting is one row gather of the packed cell state per
+  substep, and the thermodynamic fields (T, p, RH, ...) are recomputed
+  elementwise at drop granularity;
 - cells with different substep counts advance in lockstep under one masked
   ``while_loop`` — spent cells are frozen, shapes stay static.
 """
@@ -38,73 +39,54 @@ def _percell_sum(values, cell_start, n_cell):
 
 
 def _cell_rows_to_drops(values_cell, cell_of_drop, n_cell):
-    """broadcast per-cell rows (n_cell, k) to drops (n_drops, k) as a
-    one-hot matmul: exact (each row selects exactly one cell) and MXU-fast,
-    vs the element-at-a-time TPU lowering of ``values[cell_of_drop]``"""
-    one_hot = (
-        jnp.clip(cell_of_drop, 0, n_cell - 1)[:, None]
-        == jnp.arange(n_cell, dtype=cell_of_drop.dtype)[None, :]
-    ).astype(values_cell.dtype)
-    return one_hot @ values_cell
+    """broadcast per-cell rows (n_cell, ...) to drops; dead drops may carry
+    any cell id, so the index is clamped into the table"""
+    return values_cell[jnp.clip(cell_of_drop, 0, n_cell - 1)]
 
 
-def make_condensation_solver(
-    formulae,
-    *,
-    n_cell,
-    dt,
-    rtol_x=1e-6,
-    rtol_thd=1e-6,
-    dt_range=(1e-4, 1.0),
-    adaptive=True,
-    fuse=32,
-    multiplier=2,
-    RH_rtol=1e-7,
-    max_iters=16,
-    bisect_iters=64,
-    failure_doubling_cap=64,
-    use_pallas=None,
-):
-    """build the jit-traceable condensation step closed over formulae/config"""
+def compute_thermo(f, thd, qv, rhod, air_density, air_viscosity):
+    """(T, p, RH, lv, pvs, DTp, KTp, Sc) from the state-variable triplet,
+    elementwise (cells or drops)"""
+    T = f.state_variable_triplet.T(rhod, thd)
+    p = f.state_variable_triplet.p(rhod, T, qv)
+    pv = f.state_variable_triplet.pv(p, qv)
+    lv = f.latent_heat_vapourisation.lv(T)
+    pvs = f.saturation_vapour_pressure.pvs_water(T)
+    # Neglect-variant thermics return Python constants: pin them to the
+    # state's dtype (under x64 a bare constant would widen f32 math to f64)
+    DTp = jnp.broadcast_to(
+        jnp.asarray(f.diffusion_thermics.D(T, p), T.dtype), T.shape
+    )
+    KTp = jnp.broadcast_to(
+        jnp.asarray(f.diffusion_thermics.K(T, p), T.dtype), T.shape
+    )
+    RH = pv / pvs
+    Sc = f.trivia.air_schmidt_number(
+        dynamic_viscosity=air_viscosity, diffusivity=DTp, density=air_density
+    )
+    return T, p, RH, lv, pvs, DTp, KTp, Sc
+
+
+# per-drop inputs of the solve, in argument order
+DROP_INPUTS = (
+    "water_mass", "vdry", "kappa", "f_org", "reynolds_number",
+    "thd", "qv", "rhod", "dt_sub", "active", "air_density", "air_viscosity",
+)
+
+
+def make_drop_solver(formulae, *, rtol_x, RH_rtol, max_iters, bisect_iters):
+    """the per-droplet implicit mass solve (reference ``calculate_ml_new``
+    408-572), elementwise over drops. Returns
+    ``masses_new(*inputs) -> (mass_new, success)`` taking the arrays named
+    in ``DROP_INPUTS`` (``active`` > 0 marks drops of cells being stepped).
+
+    Written so that it also serves as the body of the Triton kernel:
+    elementwise jnp only, int32 loop counters, and the bisection's early
+    exit tests a max-reduction over the drops it holds (``jnp.any`` lowers
+    to a reduction the Triton route refuses). XLA evaluates it over the
+    whole particle axis, the kernel over one block of drops."""
     f = formulae
     const = f.constants
-
-    import os
-
-    from .pallas.scan import _interpret_mode, _use_pallas
-
-    if use_pallas is None:
-        # PYSDM_TPU_NO_PALLAS_COND disables just the fused condensation
-        # kernel (keeping the fused coalesce/cumsum) — its Mosaic compile
-        # inside the fully-fused multi-dynamic program is the costly part.
-        # PYSDM_TPU_ONLY_PALLAS_COND (fault-isolation knob) forces the
-        # condensation kernel ON while PYSDM_TPU_NO_PALLAS turns the
-        # coalesce/cumsum kernels off — one kernel family per program.
-        if os.environ.get("PYSDM_TPU_ONLY_PALLAS_COND"):
-            use_pallas = True
-        else:
-            use_pallas = _use_pallas() and not os.environ.get(
-                "PYSDM_TPU_NO_PALLAS_COND"
-            )
-    fused_masses_new = None
-    if use_pallas:
-        from .pallas.condensation import make_fused_masses_new
-
-        # NOTE: the fused kernel runs a fixed min(bisect_iters, 40)-count
-        # bisection — rtol_x does not apply on this path (f32; see
-        # make_fused_masses_new docstring for the semantics difference)
-        fused_masses_new = make_fused_masses_new(
-            f,
-            rtol_x=rtol_x,
-            RH_rtol=RH_rtol,
-            max_iters=max_iters,
-            bisect_iters=bisect_iters,
-        )
-    if dt_range[1] > dt:
-        dt_range = (dt_range[0], dt)
-    n_substeps_max = int(dt // dt_range[0])
-    n_substeps_min = max(1, int(-(-dt // dt_range[1])))  # ceil
-
     x_max = f.diffusion_coordinate.x_max()
 
     def minfun(x_new, x_old, dt_sub, kappa, f_org, rd3, T, RH, Fk, Fd):
@@ -118,26 +100,26 @@ def make_condensation_solver(
         res = x_old - x_new + dt_sub * f.diffusion_coordinate.dx_dt(mass_new, dm_dt)
         return jnp.where(x_new > x_max, x_old - x_new, res)
 
-    def calculate_masses_new(
-        *, attrs, dt_sub, active_drop, T, p, RH, lv, pvs, DTp, KTp, Sc,
+    def masses_new(
+        water_mass, vdry, kappa, f_org, reynolds_number,
+        thd, qv, rhod, dt_sub, active_drop, air_density, air_viscosity,
     ):
-        """per-droplet implicit solve over per-drop thermo fields;
-        returns (mass_new, success_per_drop)"""
-        water_mass = attrs["water_mass"]
         ftype = water_mass.dtype
-        active = (water_mass > 0) & active_drop
+        T, p, RH, lv, pvs, DTp, KTp, Sc = compute_thermo(
+            f, thd, qv, rhod, air_density, air_viscosity
+        )
+        active = (water_mass > 0) & (active_drop > 0)
 
-        safe_mass = jnp.where(active, water_mass, 1e-18)
+        safe_mass = jnp.where(active, water_mass, jnp.asarray(1e-18, ftype))
         v_drop = f.particle_shape_and_density.mass_to_volume(safe_mass)
         x_old = f.diffusion_coordinate.x(safe_mass)
         r_old = f.trivia.radius(v_drop)
-        vdry = attrs["vdry"]
         x_insane = f.diffusion_coordinate.x(
             f.particle_shape_and_density.volume_to_mass(vdry / 100)
         )
         rd3 = vdry / const.PI_4_3
-        sgm = f.surface_tension.sigma(T, v_drop, vdry, attrs["f_org"])
-        RH_eq = f.hygroscopicity.RH_eq(r_old, T, attrs["kappa"], rd3, sgm)
+        sgm = f.surface_tension.sigma(T, v_drop, vdry, f_org)
+        RH_eq = f.hygroscopicity.RH_eq(r_old, T, kappa, rd3, sgm)
 
         lambdaK = f.diffusion_kinetics.lambdaK(T, p)
         lambdaD = f.diffusion_kinetics.lambdaD(DTp, T)
@@ -145,7 +127,7 @@ def make_condensation_solver(
         Kr = f.diffusion_kinetics.K(KTp, r_old, lambdaK)
         vent = f.ventilation.ventilation_coefficient(
             sqrt_re_times_cbrt_sc=f.trivia.sqrt_re_times_cbrt_sc(
-                Re=attrs["reynolds_number"], Sc=Sc
+                Re=reynolds_number, Sc=Sc
             )
         )
         Fk = f.drop_growth.Fk(T=T, K=Kr * vent, lv=lv)
@@ -160,14 +142,13 @@ def make_condensation_solver(
         dx_old = jnp.where(at_equilibrium, jnp.zeros((), ftype), dx_old)
         need_solve = active & (dx_old != 0)
 
-        margs = (x_old, dt_sub, attrs["kappa"], attrs["f_org"], rd3, T, RH, Fk, Fd)
+        margs = (x_old, dt_sub, kappa, f_org, rd3, T, RH, Fk, Fd)
         a = x_old
         fa = minfun(a, *margs)
 
         # f32-robust bracket expansion (generalizes reference 498-530).
-        # Two haze-at-equilibrium pathologies bite a low-precision
-        # pipeline (observed on TPU f32; the f64 reference cannot hit
-        # them at these scales):
+        # Two haze-at-equilibrium pathologies bite a float32 pipeline
+        # (the f64 reference cannot hit them at these scales):
         # (a) fa == 0 exactly — x_old already solves the implicit
         #     equation to machine precision; fa*fb < 0 can then never
         #     hold, so the drop would be mis-reported unbracketable;
@@ -191,16 +172,19 @@ def make_condensation_solver(
         fb = minfun(b, *margs)
 
         # bracket expansion (reference 498-530): double dx until sign change
-        def expand_body(i, carry):
-            b, fb = carry
+        def expand_body(_, carry):
+            b, fb, scale = carry
             not_bracketed = (fa * fb >= 0) & need_solve
-            b_try = jnp.maximum(x_insane, a + dx_step * (2.0 ** (i + 1)))
+            b_try = jnp.maximum(x_insane, a + dx_step * scale)
             fb_try = minfun(b_try, *margs)
             b = jnp.where(not_bracketed, b_try, b)
             fb = jnp.where(not_bracketed, fb_try, fb)
-            return b, fb
+            return b, fb, scale * 2
 
-        b, fb = jax.lax.fori_loop(0, max_iters, expand_body, (b, fb))
+        b, fb, _ = jax.lax.fori_loop(
+            jnp.int32(0), jnp.int32(max_iters), expand_body,
+            (b, fb, jnp.asarray(2.0, ftype)),
+        )
         bracketed = (fa * fb < 0) | converged_at_a
         success_drop = ~need_solve | bracketed
 
@@ -208,17 +192,19 @@ def make_condensation_solver(
         hi = jnp.maximum(a, b)
         flo = jnp.where(a <= b, fa, fb)
 
-        # bisection with masked early exit (GPU-backend-style fixed-count
-        # root find, reference ``impl_thrust_rtc/bisection.py``)
+        # bisection with masked early exit (GPU-backend-style root find,
+        # reference ``impl_thrust_rtc/bisection.py``)
+        solving = need_solve & bracketed & ~converged_at_a
+        x_scale = jnp.abs(jnp.where(x_old != 0, x_old, jnp.ones((), ftype)))
+
         def bisect_cond(carry):
             i, lo, hi, _ = carry
-            unconverged = (
-                need_solve & bracketed & ~converged_at_a
-                & ~f.trivia.within_tolerance(
-                    hi - lo, jnp.abs(jnp.where(x_old != 0, x_old, 1.0)), rtol_x
-                )
+            unconverged = solving & ~f.trivia.within_tolerance(
+                hi - lo, x_scale, rtol_x
             )
-            return (i < bisect_iters) & jnp.any(unconverged)
+            return (i < bisect_iters) & (
+                jnp.max(unconverged.astype(jnp.int32)) > 0
+            )
 
         def bisect_body(carry):
             i, lo, hi, flo = carry
@@ -231,11 +217,9 @@ def make_condensation_solver(
             return i + 1, lo_new, hi, flo
 
         _, lo, hi, _ = jax.lax.while_loop(
-            bisect_cond, bisect_body, (0, lo, hi, flo)
+            bisect_cond, bisect_body, (jnp.int32(0), lo, hi, flo)
         )
-        x_new = jnp.where(
-            need_solve & bracketed & ~converged_at_a, 0.5 * (lo + hi), x_old
-        )
+        x_new = jnp.where(solving, 0.5 * (lo + hi), x_old)
         mass_new = f.diffusion_coordinate.mass(x_new)
         mass_new = jnp.where(active, mass_new, water_mass)
         # failure detection (reference ``condensation_methods.py:670-696``
@@ -247,20 +231,41 @@ def make_condensation_solver(
         mass_new = jnp.where(finite, mass_new, water_mass)
         return mass_new, (success_drop & finite) | ~active
 
-    def compute_cell_thermo(thd, qv, rhod, air_density, air_viscosity):
-        T = f.state_variable_triplet.T(rhod, thd)
-        p = f.state_variable_triplet.p(rhod, T, qv)
-        pv = f.state_variable_triplet.pv(p, qv)
-        lv = f.latent_heat_vapourisation.lv(T)
-        pvs = f.saturation_vapour_pressure.pvs_water(T)
-        # Neglect-variant thermics return scalar constants — broadcast
-        DTp = jnp.broadcast_to(jnp.asarray(f.diffusion_thermics.D(T, p)), T.shape)
-        KTp = jnp.broadcast_to(jnp.asarray(f.diffusion_thermics.K(T, p)), T.shape)
-        RH = pv / pvs
-        Sc = f.trivia.air_schmidt_number(
-            dynamic_viscosity=air_viscosity, diffusivity=DTp, density=air_density
-        )
-        return T, p, RH, lv, pvs, DTp, KTp, Sc
+    return masses_new
+
+
+def use_condensation_kernel(dtype):
+    """the Triton kernel runs where it was built for: a GPU, in float32;
+    everything else takes the XLA formulation"""
+    return jax.default_backend() == "gpu" and jnp.dtype(dtype) == jnp.float32
+
+
+def make_condensation_solver(
+    formulae,
+    *,
+    n_cell,
+    dt,
+    rtol_x=1e-6,
+    rtol_thd=1e-6,
+    dt_range=(1e-4, 1.0),
+    adaptive=True,
+    fuse=32,
+    multiplier=2,
+    RH_rtol=1e-7,
+    max_iters=16,
+    bisect_iters=64,
+    failure_doubling_cap=64,
+):
+    """build the jit-traceable condensation step closed over formulae/config"""
+    f = formulae
+    masses_new = make_drop_solver(
+        f, rtol_x=rtol_x, RH_rtol=RH_rtol, max_iters=max_iters,
+        bisect_iters=bisect_iters,
+    )
+    if dt_range[1] > dt:
+        dt_range = (dt_range[0], dt)
+    n_substeps_max = int(dt // dt_range[0])
+    n_substeps_min = max(1, int(-(-dt // dt_range[1])))  # ceil
 
     def substep(
         *, attrs, mult_f, cell_of_drop, cell_start, cell_active, dt_sub_cell,
@@ -279,15 +284,10 @@ def make_condensation_solver(
         qv = jnp.where(act, qv + dt_sub * dqv_dt_pred / 2, qv)
         rhod = jnp.where(act, rhod + dt_sub * drhod_dt / 2, rhod)
 
-        T, p, RH, lv, pvs, DTp, KTp, Sc = compute_cell_thermo(
-            thd, qv, rhod, air_density, air_viscosity
+        T, _, RH, lv, _, _, _, _ = compute_thermo(
+            f, thd, qv, rhod, air_density, air_viscosity
         )
-        # broadcast the updated cell state to the drops via a one-hot
-        # matmul on the MXU (exact: each one-hot row selects one cell row)
-        # instead of a dynamic gather — TPU gathers lower to an
-        # element-at-a-time path (~12 ms per 7 rows at 2.56M drops vs ~1 ms
-        # for the (n_drops, n_cell) x (n_cell, 7) matmul, and the substep
-        # runs ~15 times per step between fake and real sweeps)
+        # one row gather of the packed cell state per substep
         pack = jnp.stack(
             [thd, qv, rhod, dt_sub_cell, act.astype(ftype),
              air_density, air_viscosity],
@@ -302,24 +302,17 @@ def make_condensation_solver(
         # cell's segment rather than a trailing bucket, and must neither
         # be solved nor allowed to fail the cell
         act_d = jnp.where(mult_f > 0, act_d, jnp.zeros((), ftype))
-        if fused_masses_new is not None:
-            # fused Pallas fast path: per-drop thermo + Koehler + bracket +
-            # bisection in one VMEM-resident pass (ops/pallas/condensation.py)
-            mass_new, success_drop = fused_masses_new(
-                attrs["water_mass"], attrs["vdry"], attrs["kappa"],
-                attrs["f_org"], attrs["reynolds_number"],
-                thd_d, qv_d, rhod_d, dt_sub_d, act_d, rho_d, mu_d,
-                interpret=_interpret_mode(),
-            )
+        drop_args = (
+            attrs["water_mass"], attrs["vdry"], attrs["kappa"],
+            attrs["f_org"], attrs["reynolds_number"],
+            thd_d, qv_d, rhod_d, dt_sub_d, act_d, rho_d, mu_d,
+        )
+        if use_condensation_kernel(ftype):
+            from .pallas.condensation import masses_new_kernel
+
+            mass_new, success_drop = masses_new_kernel(masses_new, *drop_args)
         else:
-            T_d, p_d, RH_d, lv_d, pvs_d, DTp_d, KTp_d, Sc_d = (
-                compute_cell_thermo(thd_d, qv_d, rhod_d, rho_d, mu_d)
-            )
-            mass_new, success_drop = calculate_masses_new(
-                attrs=attrs, dt_sub=dt_sub_d, active_drop=act_d > 0,
-                T=T_d, p=p_d, RH=RH_d, lv=lv_d, pvs=pvs_d, DTp=DTp_d,
-                KTp=KTp_d, Sc=Sc_d,
-            )
+            mass_new, success_drop = masses_new(*drop_args)
         ml_new = _percell_sum(
             jnp.where(mass_new > 0, mult_f * mass_new, 0.0), cell_start, n_cell
         )
@@ -353,12 +346,7 @@ def make_condensation_solver(
         # their substep-entry masses, else liquid water changes while the
         # vapour/heat fields are restored and the cell's water and energy
         # budgets silently diverge (the reference aborts instead)
-        ok_d = (
-            _cell_rows_to_drops(
-                finite_cell.astype(ftype)[:, None], cell_of_drop, n_cell
-            )[:, 0]
-            > 0.5
-        )
+        ok_d = _cell_rows_to_drops(finite_cell, cell_of_drop, n_cell)
         zeros_cell = jnp.zeros(n_cell, ftype)
         if fake:
             attrs_out = attrs
@@ -478,23 +466,18 @@ def make_condensation_solver(
         are exact in f32/f64 and cannot overflow — an int32 n doubled by
         a persistently-failing cell wraps to 0 after 32 doublings
         (5 * 2^32 == 0), making dt_sub = dt/0 = inf and silently freezing
-        the cell (observed on TPU, round 4). NOTE: thd_long IS carried
-        through the phase-1 while_loop (saving one fake substep per
-        adaptive step) — the round-4 device faults once suspected of this
-        carry were attributed to the unbounded failure-doubling loop
-        tripping the execution watchdog (PERF_NOTES.md), and the carry was
-        re-validated on silicon after the cap below landed."""
+        the cell. thd_long is carried through the phase-1 while_loop,
+        saving one fake substep per adaptive step."""
         ftype = thd.dtype
         n_max_f = jnp.asarray(n_substeps_max, ftype)
         # a cell whose fake substep STILL fails at this count will not be
         # saved by more halving — freeze its n here and let the real
         # substeps report the per-cell failure (counted, loud). Without
         # the cap, failure-doubling marches n to n_substeps_max (dt/1e-4
-        # = 50000 at dt=5s): a 50000-iteration lockstep substep loop runs
-        # the device for minutes and trips the TPU runtime's execution
-        # watchdog ("TPU device error" — observed round 4 at 2.56M SDs;
-        # the reference raises on failure instead of re-halving forever,
-        # impl_numba condensation_methods.py:670-696)
+        # = 50000 at dt=5s): a 50000-iteration lockstep substep loop over
+        # every drop runs for minutes (the reference raises on failure
+        # instead of re-halving forever, impl_numba
+        # condensation_methods.py:670-696)
         n_fail_cap = jnp.asarray(
             max(n_substeps_min, min(n_substeps_max, failure_doubling_cap)),
             ftype,
@@ -535,10 +518,10 @@ def make_condensation_solver(
 
         # the Richardson error estimate is a difference of two same-scale
         # trajectories: it cannot meaningfully drop below a few ulps of
-        # thd. On the f32 TPU path a tolerance below that floor would keep
+        # thd. In float32 a tolerance below that floor would keep
         # 'within' false forever and double n to n_substeps_max — another
-        # route to the minutes-long lockstep loop the execution watchdog
-        # kills. (f64: the floor is ~1e-15, never binding.)
+        # route to the minutes-long lockstep loop. (f64: the floor is
+        # ~1e-15, never binding.)
         rtol_eff = max(rtol_thd, 16 * float(jnp.finfo(ftype).eps))
 
         # phase 2: Richardson comparison against mult*n

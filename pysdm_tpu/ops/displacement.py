@@ -4,7 +4,7 @@ Semantics parity with reference
 ``PySDM/backends/impl_numba/methods/displacement_methods.py``: per-particle
 Arakawa-C courant interpolation (implicit- or explicit-in-space scheme),
 precipitation flagging on bottom-boundary crossing, out-of-column flagging.
-TPU-first: all gathers are flat-index vector gathers over the face arrays; the
+All gathers are flat-index vector gathers over the face arrays; the
 reference's idx-compaction removal becomes multiplicity-zero masking.
 """
 
@@ -24,33 +24,17 @@ def face_strides(grid, d):
 
 def courant_at_particles(courant_d, strides_d, cell_origin, d):
     """(c_left, c_right) of each particle's cell along axis d
-    (reference ``calculate_displacement_body_1d/2d/3d``).
-
-    TPU: the courant field is a small table (~grid-size entries) read at
-    2.56M per-particle indices; a dynamic gather lowers to the slow
-    element-at-a-time path, so both faces ride ONE one-hot matmul on the
-    MXU (exact — each one-hot row selects a single table entry) against
-    the (table, shifted-table) pair."""
+    (reference ``calculate_displacement_body_1d/2d/3d``). Both indices are
+    clamped into the flat face table: a dead particle's garbage origin
+    must not read out of range."""
     base = jnp.sum(
         jnp.asarray(strides_d)[:, None] * cell_origin, axis=0
     )
     flat = courant_d.reshape(-1)
-    m = flat.shape[0]
-    s = int(strides_d[d])
-    if m <= 8192:
-        # edge-pad (mirrors XLA gather's clamp for any out-of-range index
-        # a dead particle's garbage origin might produce)
-        shifted = jnp.concatenate(
-            [flat[s:], jnp.broadcast_to(flat[-1], (s,))]
-        )
-        tab = jnp.stack([flat, shifted], axis=1)  # (m, 2)
-        base_c = jnp.clip(base, 0, m - 1).astype(jnp.int32)
-        one_hot = (
-            base_c[:, None] == jnp.arange(m, dtype=jnp.int32)[None, :]
-        ).astype(flat.dtype)
-        out = one_hot @ tab
-        return out[:, 0], out[:, 1]
-    return flat[base], flat[base + s]
+    last = flat.shape[0] - 1
+    left = jnp.clip(base, 0, last).astype(jnp.int32)
+    right = jnp.minimum(left + int(strides_d[d]), last)
+    return flat[left], flat[right]
 
 
 def calculate_displacement(

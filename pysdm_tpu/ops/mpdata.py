@@ -2,7 +2,7 @@
 
 The reference outsources Eulerian advection to the external Numba-based
 PyMPDATA package (used via ``examples/.../mpdata_1d.py`` and ``mpdata_2d.py``);
-here the advector is first-class and TPU-native: the whole multi-pass MPDATA
+here the advector is first-class: the whole multi-pass MPDATA
 step is pure jnp (static shapes, no halo bookkeeping objects) so XLA fuses the
 upwind/antidiffusion/FCT passes and the step can run inside the jitted
 simulation step and under ``shard_map`` (halo exchange = the same pads with

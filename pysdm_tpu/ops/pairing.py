@@ -13,8 +13,7 @@ Two interchangeable matching mechanisms:
 (cell, random key) and slots (p, p+1) with ``is_first_in_pair[p]`` form pairs
 (reference semantics: per-cell Fisher-Yates ``index_methods.py:33-44`` +
 ``pair_methods.py:35-55``). P = floor(n/2)/(n(n-1)/2) per cell. Costs a full
-variadic sort of the state — the measured dominant phase of a collision step
-on TPU (~79% of a 0D box step, see PERF_NOTES.md roofline).
+variadic sort of the state.
 
 ``MirrorPairing`` — the sort-free croupier for a single cell spanning the
 whole array (0D box / parcel configs): draw ONE uniform integer K in [0, N)
@@ -76,7 +75,6 @@ class MirrorPairing:
     def __init__(self, K, n_sd, alive):
         self.n_sd = n_sd
         K = jnp.asarray(K, jnp.int32)
-        self.K = K
         self.shift = (K + 1) % n_sd
         o = jnp.arange(n_sd, dtype=jnp.int32)
         partner_o = (K - o) % n_sd

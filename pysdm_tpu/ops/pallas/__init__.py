@@ -1,2 +1,2 @@
-"""hand-written Pallas TPU kernels for the hot ops (collision update fusion,
-condensation inner loop); XLA-composed fallbacks live one level up"""
+"""hand-written Pallas kernels for the GPU (Triton route); the XLA
+formulations they replace live one level up and stay the reference"""

@@ -1,314 +1,74 @@
-"""Pallas TPU kernel: fused per-droplet implicit condensation solve.
+"""Pallas-Triton kernel: the per-droplet implicit condensation solve in one
+pass over the drops.
 
-Fuses the hottest phase of the condensation substep — the per-drop
-thermodynamic state, Koehler/ventilation/Fk/Fd evaluation, bracket
-expansion and the bisection root find (reference
-``impl_numba/methods/condensation_methods.py`` ``calculate_ml_new``
-408-572; GPU analogue ``impl_thrust_rtc/bisection.py``) — into ONE pass
-over the particle axis.
+The XLA formulation (``ops/condensation.py`` ``make_drop_solver``) runs the
+16 bracket-expansion steps as a ``fori_loop`` and up to 64 bisection steps
+as a ``while_loop`` over the whole drop array. Every ``minfun`` evaluation
+then re-reads ~10 per-drop arrays from device memory, and every bisection
+step ends in a device-wide predicate that the host waits for. This kernel
+runs the same function on 1D blocks of drops: each drop's inputs are
+loaded once, its bracket stays in registers through every iteration, and
+each block leaves the bisection as soon as its own drops have converged —
+one thread per droplet, as the reference GPU backend solves it
+(``impl_thrust_rtc/bisection.py``).
 
-Why this is the right TPU shape: the XLA formulation's bracket/bisection
-loops (``ops/condensation.py`` ``calculate_masses_new``) re-read ~10
-per-drop arrays from HBM on EVERY minfun evaluation (16 expansion + up to
-64 bisection iterations), so the solve is HBM-bound at roughly
-(iterations x arrays x 4 bytes)/drop. This kernel loads the 12 per-drop
-inputs into VMEM once, runs all iterations on the VPU in registers/VMEM,
-and writes (mass_new, success) once — an ~O(iterations)-fold HBM-traffic
-reduction for the dominant phase of parcel/kinematic condensation.
-
-The physics bodies are the same jnp formula variants the XLA path traces
-(``physics/``); they lower to Mosaic elementwise ops. The kernel is an
-f32 pipeline (TPU production dtype); the f64 CPU path keeps the XLA
-formulation, and interpret mode exercises this kernel in tests.
+The kernel is a float32 pipeline; f64 inputs are cast at the boundary.
 """
-
-import functools
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-LANES = 128
-BLOCK_R = 256
-_BLOCK = BLOCK_R * LANES
+from ..condensation import DROP_INPUTS
+
+BLOCK = 256
+NUM_WARPS = 4
+
+_ACTIVE = DROP_INPUTS.index("active")
 
 
-def make_fused_masses_new(
-    formulae,
-    *,
-    RH_rtol,
-    max_iters,
-    bisect_iters,
-    rtol_x=1e-6,
+def masses_new_kernel(
+    masses_new, *drop_args, block=BLOCK, num_warps=NUM_WARPS, interpret=False
 ):
-    """build the fused (thermo -> Koehler -> bracket -> bisect) kernel,
-    closed over the formula variants; mirrors ``ops/condensation.py``
-    ``compute_cell_thermo`` + ``calculate_masses_new`` semantics exactly,
-    except the bisection runs a FIXED iteration count of
-    ``min(bisect_iters, 40)`` (no early exit, and no ``rtol_x``-based
-    stopping — the f32 interval collapses to machine epsilon in ~30
-    halvings, so a user-configured ``rtol_x`` looser than f32 eps is
-    over-delivered and the convergence semantics differ from the XLA
-    path's rtol_x early-exit while_loop; extra iterations only refine
-    the root)."""
-    f = formulae
-    const = f.constants
-    x_max = float(f.diffusion_coordinate.x_max())
+    """``masses_new(*drop_args)`` (from ``make_drop_solver``) evaluated by a
+    Triton kernel over blocks of ``block`` drops; returns
+    (mass_new in the inputs' dtype, success as bool)"""
+    assert len(drop_args) == len(DROP_INPUTS)
+    in_dtype = drop_args[0].dtype
+    n = drop_args[0].shape[0]
+    n_pad = -(-n // block) * block
 
-    def minfun(x_new, x_old, dt_sub, kappa, f_org, rd3, T, RH, Fk, Fd):
-        mass_new = f.diffusion_coordinate.mass(x_new)
-        volume_new = f.particle_shape_and_density.mass_to_volume(mass_new)
-        r_new = f.trivia.radius(volume_new)
-        sgm = f.surface_tension.sigma(T, volume_new, const.PI_4_3 * rd3, f_org)
-        RH_eq = f.hygroscopicity.RH_eq(r_new, T, kappa, rd3, sgm)
-        r_dr_dt = f.drop_growth.r_dr_dt(RH_eq=RH_eq, RH=RH, Fk=Fk, Fd=Fd)
-        dm_dt = f.particle_shape_and_density.dm_dt(r=r_new, r_dr_dt=r_dr_dt)
-        res = x_old - x_new + dt_sub * f.diffusion_coordinate.dx_dt(
-            mass_new, dm_dt
-        )
-        return jnp.where(x_new > x_max, x_old - x_new, res)
+    def prep(i, x):
+        x = jnp.asarray(x, jnp.float32)
+        if n_pad == n:
+            return x
+        # edge-replicate the tail: zero padding would put thd = 0, vdry = 0
+        # etc. into the padded drops and drive them through log(0) and
+        # division by zero; the activity mask is zero-padded instead, so the
+        # padded drops stay inert and are sliced off on return
+        mode = "constant" if i == _ACTIVE else "edge"
+        return jnp.pad(x, (0, n_pad - n), mode=mode)
 
-    def _kernel(
-        wm_ref, vdry_ref, kappa_ref, forg_ref, re_ref,
-        thd_ref, qv_ref, rhod_ref, dts_ref, act_ref, rhoa_ref, mua_ref,
-        mass_out_ref, succ_out_ref,
-    ):
-        wm = wm_ref[...]
-        vdry = vdry_ref[...]
-        kappa = kappa_ref[...]
-        f_org = forg_ref[...]
-        re = re_ref[...]
-        thd = thd_ref[...]
-        qv = qv_ref[...]
-        rhod = rhod_ref[...]
-        dt_sub = dts_ref[...]
-        act_d = act_ref[...] > 0
-        rho_a = rhoa_ref[...]
-        mu_a = mua_ref[...]
+    def kernel(*refs):
+        in_refs, (mass_ref, ok_ref) = refs[:-2], refs[-2:]
+        mass, ok = masses_new(*(ref[...] for ref in in_refs))
+        mass_ref[...] = mass
+        ok_ref[...] = ok.astype(jnp.int32)
 
-        # per-drop thermodynamic state (compute_cell_thermo at drop
-        # granularity — VPU flops instead of strided field gathers)
-        T = f.state_variable_triplet.T(rhod, thd)
-        p = f.state_variable_triplet.p(rhod, T, qv)
-        pv = f.state_variable_triplet.pv(p, qv)
-        lv = f.latent_heat_vapourisation.lv(T)
-        pvs = f.saturation_vapour_pressure.pvs_water(T)
-        # constant-returning variants yield python floats -> f64 under the
-        # package-global x64 mode; Mosaic only lowers <=32-bit, so pin f32
-        DTp = jnp.broadcast_to(
-            jnp.asarray(f.diffusion_thermics.D(T, p), jnp.float32), T.shape
-        )
-        KTp = jnp.broadcast_to(
-            jnp.asarray(f.diffusion_thermics.K(T, p), jnp.float32), T.shape
-        )
-        RH = pv / pvs
-        Sc = f.trivia.air_schmidt_number(
-            dynamic_viscosity=mu_a, diffusivity=DTp, density=rho_a
-        )
-
-        active = (wm > 0) & act_d
-        safe_mass = jnp.where(active, wm, jnp.float32(1e-18))
-        v_drop = f.particle_shape_and_density.mass_to_volume(safe_mass)
-        x_old = f.diffusion_coordinate.x(safe_mass)
-        r_old = f.trivia.radius(v_drop)
-        x_insane = f.diffusion_coordinate.x(
-            f.particle_shape_and_density.volume_to_mass(vdry / 100)
-        )
-        rd3 = vdry / const.PI_4_3
-        sgm = f.surface_tension.sigma(T, v_drop, vdry, f_org)
-        RH_eq = f.hygroscopicity.RH_eq(r_old, T, kappa, rd3, sgm)
-
-        lambdaK = f.diffusion_kinetics.lambdaK(T, p)
-        lambdaD = f.diffusion_kinetics.lambdaD(DTp, T)
-        Dr = f.diffusion_kinetics.D(DTp, r_old, lambdaD)
-        Kr = f.diffusion_kinetics.K(KTp, r_old, lambdaK)
-        vent = f.ventilation.ventilation_coefficient(
-            sqrt_re_times_cbrt_sc=f.trivia.sqrt_re_times_cbrt_sc(Re=re, Sc=Sc)
-        )
-        Fk = f.drop_growth.Fk(T=T, K=Kr * vent, lv=lv)
-        Fd = f.drop_growth.Fd(T=T, D=Dr * vent, pvs=pvs)
-
-        at_equilibrium = f.trivia.within_tolerance(
-            jnp.abs(RH - RH_eq), RH, RH_rtol
-        )
-        r_dr_dt_old = f.drop_growth.r_dr_dt(RH_eq=RH_eq, RH=RH, Fk=Fk, Fd=Fd)
-        dm_dt_old = f.particle_shape_and_density.dm_dt(
-            r=r_old, r_dr_dt=r_dr_dt_old
-        )
-        dx_old = dt_sub * f.diffusion_coordinate.dx_dt(safe_mass, dm_dt_old)
-        dx_old = jnp.where(at_equilibrium, jnp.zeros_like(dx_old), dx_old)
-        need_solve = active & (dx_old != 0)
-
-        margs = (x_old, dt_sub, kappa, f_org, rd3, T, RH, Fk, Fd)
-        a = x_old
-        fa = minfun(a, *margs)
-
-        # f32-robust expansion (mirrors ops/condensation.py): probe in
-        # the direction of minfun's own sign (fa == 0 means x_old IS the
-        # root; a sign-inconsistent dx_old would walk away from it), with
-        # the increment floored at a few f32 ulps of x_old (a
-        # sub-resolution dx freezes b = a + dx*2^k at a)
-        dx_mag = jnp.maximum(
-            jnp.abs(dx_old),
-            jnp.float32(8 * 1.1920929e-7) * jnp.abs(x_old),
-        )
-        dx_step = jnp.where(fa > 0, dx_mag, -dx_mag)
-        converged_at_a = need_solve & (fa == 0)
-
-        b = jnp.maximum(x_insane, a + dx_step)
-        fb = minfun(b, *margs)
-
-        # bracket expansion: double dx until sign change (fixed unroll)
-        def expand_body(i, carry):
-            b, fb = carry
-            not_bracketed = (fa * fb >= 0) & need_solve
-            b_try = jnp.maximum(
-                x_insane, a + dx_step * (2.0 ** (i.astype(jnp.float32) + 1))
-            )
-            fb_try = minfun(b_try, *margs)
-            b = jnp.where(not_bracketed, b_try, b)
-            fb = jnp.where(not_bracketed, fb_try, fb)
-            return b, fb
-
-        # i32 loop bounds: python-int bounds become i64 counters under x64
-        b, fb = jax.lax.fori_loop(
-            jnp.int32(0), jnp.int32(max_iters), expand_body, (b, fb)
-        )
-        bracketed = (fa * fb < 0) | converged_at_a
-        success = ~need_solve | bracketed
-
-        lo = jnp.minimum(a, b)
-        hi = jnp.maximum(a, b)
-        flo = jnp.where(a <= b, fa, fb)
-
-        # fixed-count bisection (the GPU backend's root find,
-        # ``impl_thrust_rtc/bisection.py``) — all iterations in VMEM. A
-        # block-level early-exit while_loop variant (max-reduce condition —
-        # jnp.any lowers through an f64 squeeze under the global x64 mode)
-        # compiled but produced runtime TPU kernel faults inside the fully
-        # fused warm-rain program; the fixed fori_loop is the
-        # silicon-validated form. The f32 interval collapses to machine
-        # epsilon in ~30 halvings, so the effective cap is iteration count,
-        # not tolerance.
-        def bisect_body(_, carry):
-            lo, hi, flo = carry
-            mid = 0.5 * (lo + hi)
-            fmid = minfun(mid, *margs)
-            go_lo = flo * fmid < 0
-            hi = jnp.where(go_lo, mid, hi)
-            lo_new = jnp.where(go_lo, lo, mid)
-            flo = jnp.where(go_lo, flo, fmid)
-            return lo_new, hi, flo
-
-        import os as _os
-
-        if not _os.environ.get("PYSDM_TPU_NO_COND_EARLY_EXIT"):
-            # default since round 5: early-exit bisection honoring rtol_x
-            # (stop once every active lane's bracket is within
-            # rtol_x * |x|). The round-3 device fault hit this
-            # while_loop-with-vector-carries form, but on jaxlib 0.9.0 the
-            # distilled repro runs clean and the full 2.56M-SD flagship
-            # validated 100 evolving steps on silicon (success flags true,
-            # finite state, no faults; 422 -> 362 ms/step on the static
-            # state, ~5% on evolving runs). PYSDM_TPU_NO_COND_EARLY_EXIT=1
-            # restores the fixed-count fori_loop (the round-4 form).
-            # Mosaic rules observed: max-reduce condition (jnp.any lowers
-            # through an f64 squeeze under global x64), f32 carries only.
-            tol = jnp.float32(rtol_x) * jnp.abs(x_old) + jnp.float32(1e-30)
-            solve_mask = need_solve & bracketed & ~converged_at_a
-
-            def ee_cond(carry):
-                i, lo, hi, _ = carry
-                excess = jnp.where(
-                    solve_mask, (hi - lo) - tol, jnp.float32(-1.0)
-                )
-                return (i < jnp.int32(min(bisect_iters, 40))) & (
-                    jnp.max(excess) > 0
-                )
-
-            def ee_body(carry):
-                i, lo, hi, flo = carry
-                lo, hi, flo = bisect_body(0, (lo, hi, flo))
-                return i + jnp.int32(1), lo, hi, flo
-
-            _, lo, hi, _ = jax.lax.while_loop(
-                ee_cond, ee_body, (jnp.int32(0), lo, hi, flo)
-            )
-        else:
-            lo, hi, _ = jax.lax.fori_loop(
-                jnp.int32(0), jnp.int32(min(bisect_iters, 40)),
-                bisect_body, (lo, hi, flo),
-            )
-        x_new = jnp.where(
-            need_solve & bracketed & ~converged_at_a, 0.5 * (lo + hi), x_old
-        )
-        mass_new = f.diffusion_coordinate.mass(x_new)
-        mass_new = jnp.where(active, mass_new, wm)
-        # non-finite root -> counted failure, state kept finite (mirrors
-        # ops/condensation.py calculate_masses_new)
-        finite = jnp.isfinite(mass_new)
-        mass_out_ref[...] = jnp.where(finite, mass_new, wm)
-        succ_out_ref[...] = ((success & finite) | ~active).astype(jnp.float32)
-
-    @functools.partial(jax.jit, static_argnames=("interpret",))
-    def fused_masses_new(
-        water_mass, vdry, kappa, f_org, reynolds,
-        thd_d, qv_d, rhod_d, dt_sub_d, act_d, rho_air_d, mu_air_d,
-        interpret=False,
-    ):
-        """returns (mass_new, success_per_drop: bool); accepts f64 inputs
-        from the CPU/interpret test path (cast to f32 at the boundary)"""
-        in_dtype = water_mass.dtype
-        arg_names = (
-            "water_mass", "vdry", "kappa", "f_org", "reynolds",
-            "thd_d", "qv_d", "rhod_d", "dt_sub_d", "act_d", "rho_air_d",
-            "mu_air_d",
-        )
-        args = [
-            jnp.asarray(x, jnp.float32)
-            for x in (
-                water_mass, vdry, kappa, f_org, reynolds,
-                thd_d, qv_d, rhod_d, dt_sub_d, act_d, rho_air_d, mu_air_d,
-            )
-        ]
-        n = water_mass.shape[0]
-        n_pad = -(-n // _BLOCK) * _BLOCK
-        pad = n_pad - n
-
-        def prep(x, edge):
-            if pad:
-                # edge-replicate the tail (zero-padding puts thd=0, vdry=0
-                # etc. on the pad lanes, driving the padded sublane math
-                # through log(0)/0-division inf/NaN cascades); the activity
-                # mask is the exception — padded as 0 so pad lanes stay
-                # inert and are sliced off on return
-                x = jnp.pad(x, (0, pad), mode="edge" if edge else "constant")
-            return x.reshape(n_pad // LANES, LANES)
-
-        # derive the activity-mask position from the name tuple — a
-        # positional constant would silently flip which input gets
-        # zero-padding vs edge-padding on any future reorder
-        act_index = arg_names.index("act_d")
-        assert len(args) == len(arg_names)
-        args = [prep(x, edge=(i != act_index)) for i, x in enumerate(args)]
-        grid = n_pad // _BLOCK
-        spec = pl.BlockSpec(
-            (BLOCK_R, LANES), lambda i: (i, i * 0), memory_space=pltpu.VMEM
-        )
-        mass_new, succ = pl.pallas_call(
-            _kernel,
-            grid=(grid,),
-            in_specs=[spec] * len(args),
-            out_specs=[spec, spec],
-            out_shape=[
-                jax.ShapeDtypeStruct((n_pad // LANES, LANES), jnp.float32),
-                jax.ShapeDtypeStruct((n_pad // LANES, LANES), jnp.float32),
-            ],
-            interpret=interpret,
-        )(*args)
-        mass_new = mass_new.reshape(n_pad)[:n].astype(in_dtype)
-        succ = succ.reshape(n_pad)[:n] > 0
-        return mass_new, succ
-
-    return fused_masses_new
+    spec = pl.BlockSpec((block,), lambda i: (i,))
+    mass, ok = pl.pallas_call(
+        kernel,
+        out_shape=(
+            jax.ShapeDtypeStruct((n_pad,), jnp.float32),
+            jax.ShapeDtypeStruct((n_pad,), jnp.int32),
+        ),
+        grid=(n_pad // block,),
+        in_specs=[spec] * len(drop_args),
+        out_specs=(spec, spec),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=num_warps),
+        interpret=interpret,
+        name="condensation_masses_new",
+    )(*(prep(i, x) for i, x in enumerate(drop_args)))
+    return mass[:n].astype(in_dtype), ok[:n] > 0

@@ -1,6 +1,6 @@
 """Cell bucketing and pair finding via sorting.
 
-TPU-first replacement (SURVEY.md §7 delta #3) for the reference's counting
+Replacement (SURVEY.md §7 delta #3) for the reference's counting
 sort + serial per-cell Fisher-Yates shuffle
 (reference ``collisions_methods.py:588-741``, ``index_methods.py:23-44``):
 one stable sort of particles by ``(cell_id, u01)`` delivers both the
@@ -9,11 +9,9 @@ cell-segment structure and a uniform random permutation within each cell
 distributional equivalent of Fisher-Yates; exercised by the croupier tests).
 Dead particles (multiplicity 0) sort to a trailing bucket with key ``n_cell``.
 
-Performance notes (TPU): all index arrays are int32 (int64 gathers hit the
-slow emulated path on TPU); per-cell reductions over *sorted* slots are
-cumsum-differences / segmented scans — XLA lowers ``jax.ops.segment_sum``
-to a serial scatter-add on TPU (~9 ms per 2^20 updates measured on v5e),
-while a cumsum is a handful of fast vector passes.
+All index arrays are int32; per-cell reductions over *sorted* slots are
+cumsum differences / segmented scans, deterministic and free of
+scatter-adds (``jax.ops.segment_sum``).
 """
 
 import numpy as np
@@ -35,9 +33,8 @@ _MIN_RAND_BITS = 16
 
 def _shuffle_keys(cell_id, alive, rand, n_cell):
     """pack (cell, random) into ONE u32 sort key when enough random bits fit
-    (XLA's TPU sort is a multi-pass compare-exchange network whose HBM
-    traffic scales with total operand width — one u32 key instead of
-    (i32 cell, f32 u01) cuts the dominant cost by ~1/3). Dead particles get
+    (a sort's memory traffic scales with total operand width — one u32
+    key instead of (i32 cell, f32 u01)). Dead particles get
     cell n_cell (trailing bucket). ``rand`` may be u32 random bits or u01
     floats (converted — the u01-injection path).
     Returns (keys tuple, num_keys, rand_bits or None)."""
@@ -116,10 +113,9 @@ def bucket_shuffle(cell_id, alive, u01, n_cell):
 
 def bucket_shuffle_payload(cell_id, alive, u01, n_cell, payloads=()):
     """like ``bucket_shuffle`` but co-sorts ``payloads`` (1D arrays of length
-    n_sd) as additional variadic-sort operands. On TPU this is the fast path:
-    a 2^20 gather costs ~13 ms device time (element-at-a-time) while adding a
-    payload operand to the sort costs well under 1 ms. No order/iota operand
-    is carried — callers that keep the state sorted never need it.
+    n_sd) as additional variadic-sort operands instead of gathering them
+    through the sort order afterwards. No order/iota operand is carried —
+    callers that keep the state sorted never need it.
     Returns (sorted_payloads, sorted_cell, cell_start, is_first)."""
     n_sd = cell_id.shape[0]
     key_cell = jnp.where(alive, cell_id, n_cell).astype(jnp.int32)
@@ -263,12 +259,8 @@ def sorted_segment_sum(values, cell_start, n_cell):
     """per-cell sum over slots sorted by cell, as a cumsum difference
     (deterministic, no scatter): sum_i = csum[cell_start[i+1]] - csum[cell_start[i]].
     Exact for integer dtypes; for floats the error is that of a length-n
-    cumsum (fine for rate counters; use matmul/one-hot for tighter sums).
-    The cumsum is the single-pass Pallas kernel on TPU (7x XLA's
-    reduce-window lowering, ``ops/pallas/scan.py``)."""
-    from .pallas.scan import cumsum as _fast_cumsum
-
-    c = _fast_cumsum(values, axis=-1)
+    cumsum (fine for rate counters)."""
+    c = jnp.cumsum(values, axis=-1)
     cpad = jnp.concatenate([jnp.zeros(c.shape[:-1] + (1,), c.dtype), c], axis=-1)
     return cpad[..., cell_start[1 : n_cell + 1]] - cpad[..., cell_start[:n_cell]]
 

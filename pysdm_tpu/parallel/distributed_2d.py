@@ -9,7 +9,7 @@ while condensation and collisions are cell-local and need no communication.
 The per-shard step is the ordinary single-chip composed step (built by the
 standard Builder against the local mesh) wrapped in ``shard_map``.
 
-Works identically on a real TPU mesh and on the emulated CPU device mesh
+Works identically on real GPUs and on the emulated CPU device mesh
 (``xla_force_host_platform_device_count``) — the testing analogue of the
 reference's FakeThrustRTC."""
 

@@ -1,9 +1,9 @@
 """Halo exchange for sharded Eulerian fields.
 
-The reference is single-device (SURVEY.md §2.5); this is the TPU-native layer
+The reference is single-device (SURVEY.md §2.5); this is the layer
 that replaces its absent distributed backend: under ``shard_map`` over an
 ``(x,)`` device mesh, each shard owns a contiguous x-slab of the domain and
-the MPDATA stencil pads are neighbour exchanges over the ICI ring
+the MPDATA stencil pads are neighbour exchanges over the device ring
 (``lax.ppermute``) instead of local wrap/edge pads. The global domain is
 periodic in x, so shard 0 and shard P-1 are ring neighbours — exactly one
 bidirectional ppermute per pad."""

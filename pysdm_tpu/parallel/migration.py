@@ -2,7 +2,7 @@
 
 After displacement, particles whose cell moved outside the owning x-slab are
 handed to the ring neighbour (courant < 1 and halo-1 advection guarantee
-single-slab moves per step, so only +-1 exchanges are needed — the TPU-native
+single-slab moves per step, so only +-1 exchanges are needed — the
 replacement for what a distributed reference would do with MPI all-to-all).
 Fixed-capacity send buffers keep shapes static; overflow beyond capacity is
 counted (particles dropped with their multiplicity recorded in a deficit

@@ -2,7 +2,7 @@
 global-array conversion for process-spanning meshes.
 
 The reference is single-process (SURVEY.md §2.5 — no MPI/NCCL anywhere); this
-layer is the TPU-native addition that lets ``DistributedSimulation2D`` span
+layer is the addition that lets ``DistributedSimulation2D`` span
 hosts: each process calls :func:`initialize` first, after which
 ``jax.devices()`` returns the devices of *all* processes and the x-slab mesh
 becomes process-spanning. Simulation state is constructed host-replicated
@@ -11,7 +11,8 @@ becomes process-spanning. Simulation state is constructed host-replicated
 the contiguous block its addressable devices own.
 
 Tested with 2 processes x 4 emulated CPU devices over localhost Gloo
-(``tests/distributed/``); on a real pod slice the same calls ride ICI/DCN.
+(``tests/distributed/``); across hosts of GPUs the same calls ride the
+hosts' interconnect.
 """
 
 import numpy as np
@@ -30,8 +31,8 @@ def initialize(
 ):
     """wrap ``jax.distributed.initialize`` (idempotent per process).
 
-    On TPU pods the three arguments are auto-detected and callers can pass
-    the metadata-provided values straight through; for CPU-emulated
+    The coordinator address, process count and process id are always
+    passed explicitly (nothing detects a cluster); for CPU-emulated
     multi-host tests set ``platform='cpu'`` and ``local_device_count`` to the
     per-process virtual device count. Must run before any backend use.
     """

@@ -1,7 +1,7 @@
 """Particulator: simulation driver and mediator
 (API parity: reference ``PySDM/particulator.py``).
 
-TPU-first design: the per-step work of all registered dynamics is composed
+Design: the per-step work of all registered dynamics is composed
 into a single pure function over the simulation-state pytree and compiled once
 with ``jax.jit``; ``run(steps)`` replays it. Products and attribute accessors
 pull device data on demand (the only host<->device transfers).
@@ -58,8 +58,7 @@ class Particulator:
     # -- stepping -------------------------------------------------------
     def run(self, steps):
         """advance `steps` time steps. Without observers the whole chunk runs
-        as ONE device dispatch (jitted fori_loop over the composed step —
-        crucial on TPU where per-dispatch latency dwarfs per-step compute);
+        as ONE device dispatch (jitted fori_loop over the composed step);
         with observers, steps run one dispatch each with host callbacks in
         between (reference semantics: observers notified every step,
         reference ``particulator.py:58-61``)."""

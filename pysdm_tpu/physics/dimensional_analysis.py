@@ -4,7 +4,7 @@ The reference checks formula unit-correctness by swapping its fake unit
 registry for Pint inside a ``DimensionalAnalysis`` context
 (reference ``PySDM/physics/dimensional_analysis.py:14-27``,
 ``impl/fake_unit_registry.py``). Pint cannot flow through jitted JAX code,
-so the TPU build checks the same property — dimensional homogeneity — by
+so this engine checks the same property — dimensional homogeneity — by
 its defining symmetry instead: scale every base unit (length, mass, time,
 temperature, amount) by an arbitrary factor, scale every *dimensional
 constant* and every input accordingly, and a dimensionally-consistent

@@ -2,11 +2,11 @@
 parity with reference ``PySDM/formulae.py``) and binds it to a frozen constants
 namespace.
 
-TPU-first design delta (SURVEY.md §7.2): instead of the reference's
+Design delta (SURVEY.md §7.2): instead of the reference's
 exec+numba.njit source rewriting and CUDA-C codegen, each formula is a plain
 pure function closed over Python-float constants — it traces directly under
 ``jax.jit`` and constants become compile-time literals. No runtime codegen is
-needed on TPU; XLA fuses the formula bodies into surrounding kernels.
+needed; XLA fuses the formula bodies into surrounding kernels.
 """
 
 import os

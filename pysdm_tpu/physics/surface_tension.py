@@ -3,7 +3,7 @@ reference ``PySDM/physics/surface_tension/``): Constant (in misc_families),
 CompressedFilmOvadnevaite (Ovadnevaite et al. 2017 / Lowe et al. 2019),
 CompressedFilmRuehl and SzyszkowskiLangmuir (Ruehl et al. 2016).
 
-TPU-first: the Ruehl implicit isotherm solve — per-droplet TOMS748 in the
+The Ruehl implicit isotherm solve — per-droplet TOMS748 in the
 reference (``compressed_film_ruehl.py``) — is a fixed-count vectorized
 bisection over the whole particle axis (branch-free, jit-traceable).
 """

@@ -9,8 +9,8 @@ container formats:
 - ``save_npz`` / ``load_npz``: single-file numpy archive (no extra deps,
   host-memory staging) — handy for tests and small runs;
 - ``save_orbax`` / ``restore_orbax``: orbax-checkpoint directory tree —
-  async-capable, multi-host-aware, the production path on TPU pod slices
-  (each host writes its own shards).
+  async-capable, multi-host-aware (each host writes its own shards); an
+  optional dependency, imported only when called.
 
 Restoring rebuilds the running particulator in place: the caller builds the
 same configuration (same Builder wiring — dynamics, products, mesh), then
@@ -91,7 +91,7 @@ def restore_npz(particulator, path):
 
 
 def save_orbax(particulator, directory):
-    """write the state via orbax-checkpoint (production path on TPU)"""
+    """write the state via orbax-checkpoint (multi-host runs)"""
     import orbax.checkpoint as ocp
 
     flat, meta = _flatten_sim_state(

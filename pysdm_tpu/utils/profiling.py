@@ -1,6 +1,6 @@
 """Structured profiling helpers (SURVEY.md §5: the reference has only
 wall-clock timers — ``PySDM/impl/wall_timer.py`` — and no profiler
-integration; on TPU the native tool is the XLA/jax profiler trace).
+integration; on a JAX device the native tool is the jax profiler trace).
 
 Two entry points:
 

@@ -100,7 +100,7 @@ def crosswind_sim():
 
 
 def test_migration_under_sustained_crosswind(crosswind_sim):
-    """VERDICT r3 #7: drive particles across slab boundaries for >=50 steps
+    """drive particles across slab boundaries for >=50 steps
     near the migration-capacity ceiling; the fixed-capacity ring exchange
     must deliver every mover (no drops, no far moves) and the global water
     budget must stay closed under sustained migration pressure

@@ -1,4 +1,4 @@
-"""Shard-count invariance (VERDICT r4 item 2): the x-slab-decomposed 2D
+"""Shard-count invariance: the x-slab-decomposed 2D
 kinematic case with collisions disabled is deterministic, so the global
 state after >=10 steps must agree between n_shards in {1, 2, 4, 8} on the
 emulated CPU mesh (f64) to tight tolerance — halo exchange, advector

@@ -1,5 +1,5 @@
 """Dimensional-homogeneity checks of the physics formula catalog via the
-scale-covariance DimensionalAnalysis harness (the TPU build's counterpart
+scale-covariance DimensionalAnalysis harness (this engine's counterpart
 of the reference's Pint-based unit tests,
 reference ``PySDM/physics/dimensional_analysis.py`` +
 ``tests/unit_tests/physics/``)."""

@@ -422,7 +422,6 @@ class TestCondensationGolden:
 
         solver = make_condensation_solver(
             self.f, n_cell=self.N_CELL, dt=self.DT, adaptive=False,
-            use_pallas=False,
         )
         wm_e = jnp.asarray(self.water_mass0)
         thd_e = jnp.asarray(self.THD0)

@@ -172,25 +172,3 @@ def test_box_mirror_vs_sort_croupier_statistics():
     # droplet count decays by ~half over the run; croupiers must agree on the
     # ensemble mean within a few percent
     assert results["mirror"] == pytest.approx(results["sort"], rel=0.05)
-
-
-def test_u01_hash_uniformity():
-    """in-kernel pair-keyed PRF (ops/pallas/collision._u01_hash): chi2
-    uniformity over 2^16 consecutive pair ids (the gamma-draw consumer only
-    needs marginal uniformity; avalanche of the murmur3 finalizer gives
-    independence across steps via the seed)"""
-    import jax.numpy as jnp
-    from pysdm_tpu.ops.pallas.collision import _u01_hash
-
-    n = 1 << 16
-    for seed in (jnp.uint32(1), jnp.uint32(0xDEADBEEF)):
-        u = np.asarray(_u01_hash(seed, jnp.arange(n, dtype=jnp.int32)))
-        assert (u >= 0).all() and (u < 1).all()
-        bins = 256
-        counts, _ = np.histogram(u, bins=bins, range=(0, 1))
-        expected = n / bins
-        chi2 = ((counts - expected) ** 2 / expected).sum()
-        dof = bins - 1
-        assert abs(chi2 - dof) < 5 * np.sqrt(2 * dof)
-        # no serial correlation worth worrying about
-        assert abs(np.corrcoef(u[:-1], u[1:])[0, 1]) < 0.02

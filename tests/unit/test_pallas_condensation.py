@@ -1,9 +1,13 @@
-"""Interpret-mode tests of the fused Pallas condensation kernel
-(``ops/pallas/condensation.py``) against the XLA formulation
-(``ops/condensation.py`` ``calculate_masses_new``): same parcel
-activation run with and without the fused path (the CPU analogue of the
-reference's FakeThrustRTC GPU-code testing)."""
+"""The Pallas-Triton condensation kernel (``ops/pallas/condensation.py``)
+against the XLA formulation of the same per-drop solve
+(``ops/condensation.py`` ``make_drop_solver``), in interpret mode on the
+CPU; its CUDA lowering; and the choice between the two (the CPU analogue
+of the reference's FakeThrustRTC GPU-code testing)."""
 
+import functools
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -15,6 +19,44 @@ from pysdm_tpu.initialisation.sampling.spectral_sampling import (
     ConstantMultiplicity,
 )
 from pysdm_tpu.initialisation.spectra import Lognormal
+from pysdm_tpu.ops import condensation as cond_ops
+from pysdm_tpu.ops.pallas import condensation as kernel_ops
+from pysdm_tpu.ops.pallas.condensation import BLOCK, masses_new_kernel
+
+
+def _drop_solver(f, rtol_x=1e-6):
+    return cond_ops.make_drop_solver(
+        f, rtol_x=rtol_x, RH_rtol=1e-7, max_iters=16, bisect_iters=64
+    )
+
+
+def _drop_inputs(n, seed=11, dtype=jnp.float32):
+    """a supersaturated cell's drops: wet radii 0.1-20 um on dry radii
+    30-100 nm, every tenth drop inactive"""
+    rng = np.random.default_rng(seed)
+    r_wet = np.exp(rng.uniform(np.log(1e-7), np.log(20e-6), n))
+    r_dry = np.exp(rng.uniform(np.log(3e-8), np.log(1e-7), n))
+    full = functools.partial(np.full, n)
+    return tuple(
+        jnp.asarray(x, dtype)
+        for x in (
+            4 / 3 * np.pi * r_wet**3 * 1e3, 4 / 3 * np.pi * r_dry**3,
+            full(0.61), full(0.0), full(0.01),
+            full(290.0), rng.uniform(0.007, 0.013, n), full(1.19),
+            full(0.5), (np.arange(n) % 10 != 0).astype(float),
+            full(1.2), full(1.8e-5),
+        )
+    )
+
+
+@pytest.fixture
+def kernel_everywhere(monkeypatch):
+    """select the kernel on the CPU too, run in interpret mode"""
+    monkeypatch.setattr(cond_ops, "use_condensation_kernel", lambda dtype: True)
+    monkeypatch.setattr(
+        kernel_ops, "masses_new_kernel",
+        functools.partial(masses_new_kernel, interpret=True),
+    )
 
 
 def _run_parcel(n_steps=50, n_sd=40, adaptive=False):
@@ -40,20 +82,23 @@ def test_fused_path_matches_xla(monkeypatch, adaptive):
     wm_ref = np.asarray(ref.get_attribute("water mass"))
     qv_ref = float(ref.get_env("qv")[0])
 
-    monkeypatch.setenv("PYSDM_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setattr(cond_ops, "use_condensation_kernel", lambda dtype: True)
+    monkeypatch.setattr(
+        kernel_ops, "masses_new_kernel",
+        functools.partial(masses_new_kernel, interpret=True),
+    )
     fused = _run_parcel(adaptive=adaptive)
     wm_fused = np.asarray(fused.get_attribute("water mass"))
     qv_fused = float(fused.get_env("qv")[0])
 
     assert bool(np.asarray(fused.get_counter("condensation_success")).all())
-    # the fused kernel is an f32 pipeline; the XLA CPU path runs f64 —
+    # the kernel is an f32 pipeline; the XLA CPU path runs f64 —
     # trajectories agree to f32-level tolerances over 50 coupled steps
     np.testing.assert_allclose(wm_fused, wm_ref, rtol=2e-3)
     np.testing.assert_allclose(qv_fused, qv_ref, rtol=1e-4)
 
 
-def test_fused_activation_sanity(monkeypatch):
-    monkeypatch.setenv("PYSDM_TPU_PALLAS_INTERPRET", "1")
+def test_fused_activation_sanity(kernel_everywhere):
     p = _run_parcel(n_steps=400, adaptive=True)
     assert bool(np.asarray(p.get_counter("condensation_success")).all())
     RH_max = float(np.asarray(p.get_counter("condensation_RH_max"))[0])
@@ -63,67 +108,101 @@ def test_fused_activation_sanity(monkeypatch):
     assert (r > 1e-6).sum() >= p.n_sd // 2
 
 
-def test_kernel_cross_lowers_for_tpu():
-    """AOT-lower the fused kernel for the TPU platform on the CPU host
-    (jax.export) — catches Mosaic lowering regressions (e.g. 64-bit lanes
-    under the package-global x64 mode) without TPU hardware"""
-    import jax
-    import jax.numpy as jnp
-
-    from pysdm_tpu.ops.pallas.condensation import make_fused_masses_new
-
-    fused = make_fused_masses_new(
-        Formulae(seed=44), RH_rtol=1e-7,
-        max_iters=16, bisect_iters=64,
+@pytest.mark.parametrize("n", (1, BLOCK - 1, BLOCK, BLOCK + 1, 3 * BLOCK + 7))
+def test_kernel_matches_xla_formulation(n):
+    """padding to whole blocks must not change any drop's answer: edge
+    padding keeps the padded drops finite, and each block's early exit
+    stops only once its own drops are within rtol_x"""
+    f = Formulae(seed=44)
+    masses_new = _drop_solver(f)
+    args = _drop_inputs(n)
+    mass_x, ok_x = jax.jit(masses_new)(*args)
+    mass_k, ok_k = masses_new_kernel(masses_new, *args, interpret=True)
+    assert mass_k.shape == (n,) and mass_k.dtype == jnp.float32
+    np.testing.assert_array_equal(np.asarray(ok_k), np.asarray(ok_x))
+    x = lambda m: np.asarray(f.diffusion_coordinate.x(m), np.float64)  # noqa: E731
+    np.testing.assert_allclose(
+        x(mass_k), x(mass_x), rtol=0, atol=4e-6 * np.max(np.abs(x(args[0])))
     )
-    n = 32768
-    args = [jnp.ones((n,), jnp.float32) for _ in range(12)]
-    jax.export.export(
-        jax.jit(lambda *a: fused(*a, interpret=False)), platforms=["tpu"]
-    )(*args)
+    # inactive drops keep their mass exactly
+    inactive = np.asarray(args[9]) == 0
+    np.testing.assert_array_equal(
+        np.asarray(mass_k)[inactive], np.asarray(args[0])[inactive]
+    )
 
 
-def test_coalesce_kernel_cross_lowers_for_tpu():
-    import jax
-    import jax.numpy as jnp
-
-    from pysdm_tpu.ops.pallas.collision import fused_coalesce
-
-    n = 32768
-    mult = jnp.ones((n,), jnp.int64)
-    ext = jnp.ones((3, n), jnp.float32)
-    kern = jnp.ones((n,), jnp.float32)
-    rand = jnp.full((n,), 0.5, jnp.float32)
-    isf = jnp.zeros((n,), bool).at[::2].set(True)
-    jax.export.export(
-        jax.jit(
-            lambda m, e, k, r, i: fused_coalesce(
-                m, e, k, r, i, interpret=False
-            )
-        ),
-        platforms=["tpu"],
-    )(mult, ext, kern, rand, isf)
+def test_kernel_casts_f64_inputs_at_the_boundary():
+    f = Formulae(seed=44)
+    masses_new = _drop_solver(f)
+    args64 = _drop_inputs(2 * BLOCK + 3, dtype=jnp.float64)
+    args32 = tuple(a.astype(jnp.float32) for a in args64)
+    mass64, ok64 = masses_new_kernel(masses_new, *args64, interpret=True)
+    mass32, ok32 = masses_new_kernel(masses_new, *args32, interpret=True)
+    assert mass64.dtype == jnp.float64 and ok64.dtype == jnp.bool_
+    np.testing.assert_array_equal(np.asarray(ok64), np.asarray(ok32))
+    np.testing.assert_array_equal(
+        np.asarray(mass64), np.asarray(mass32).astype(np.float64)
+    )
 
 
-def test_f32_equilibrium_haze_succeeds_at_x_old():
-    """regression for the round-4 f32 failure cascade: haze sitting at its
-    f32 Koehler equilibrium must SUCCEED with (near-)unchanged mass, on
-    both the XLA path and the fused kernel. Before the fa-direction
-    bracket fix, minfun(x_old) == 0 (or a residual whose sign disagrees
-    with dx_old through the mass(x(m)) exp/log round-trip) made these
-    drops report 'unbracketable' and fail their cell every step
-    (ops/condensation.py bracket expansion; reference semantics
+def test_kernel_cross_lowers_for_cuda():
+    """AOT-lower the kernel inside the full condensation solver for CUDA on
+    the CPU host — catches Triton lowering regressions (e.g. a 64-bit value
+    or a reduction the route refuses) without a card"""
+    f = Formulae(seed=44)
+    masses_new = _drop_solver(f)
+    args = _drop_inputs(4096)
+    lowered = jax.jit(
+        lambda *a: masses_new_kernel(masses_new, *a)
+    ).trace(*args).lower(lowering_platforms=("cuda",))
+    assert "condensation_masses_new" in lowered.as_text()
+
+
+@pytest.mark.parametrize("block", (128, 256, 512))
+def test_kernel_cross_lowers_at_block_size(block):
+    f = Formulae(seed=44)
+    masses_new = _drop_solver(f)
+    args = _drop_inputs(3 * block + 5)
+    jax.jit(
+        lambda *a: masses_new_kernel(masses_new, *a, block=block)
+    ).trace(*args).lower(lowering_platforms=("cuda",))
+
+
+@pytest.mark.parametrize(
+    "backend, dtype, expected",
+    (
+        ("gpu", jnp.float32, True),
+        ("gpu", jnp.float64, False),
+        ("cpu", jnp.float32, False),
+    ),
+)
+def test_kernel_choice(monkeypatch, backend, dtype, expected):
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert cond_ops.use_condensation_kernel(dtype) is expected
+
+
+@pytest.mark.parametrize("path", ("xla", "kernel"))
+def test_f32_equilibrium_haze_succeeds_at_x_old(monkeypatch, path):
+    """regression for the f32 failure cascade: haze sitting at its f32
+    Koehler equilibrium must SUCCEED with (near-)unchanged mass, on both the
+    XLA path and the kernel. Before the fa-direction bracket fix,
+    minfun(x_old) == 0 (or a residual whose sign disagrees with dx_old
+    through the mass(x(m)) exp/log round-trip) made these drops report
+    'unbracketable' and fail their cell every step (ops/condensation.py
+    bracket expansion; reference semantics
     ``condensation_methods.py:498-530`` assume f64)."""
-    import jax
-    import jax.numpy as jnp
-
-    from pysdm_tpu.ops.condensation import make_condensation_solver
-
+    if path == "kernel":
+        monkeypatch.setattr(
+            cond_ops, "use_condensation_kernel", lambda dtype: True
+        )
+        monkeypatch.setattr(
+            kernel_ops, "masses_new_kernel",
+            functools.partial(masses_new_kernel, interpret=True),
+        )
     f = Formulae(seed=44)
     n = 64
     n_cell = 1
-    # subsaturated cell (RH ~0.65 at thd=290, qv=7.5e-3, rhod=1.194 —
-    # the exact regime of the round-4 flagship failures)
+    # subsaturated cell (RH ~0.65 at thd=290, qv=7.5e-3, rhod=1.194)
     thd = jnp.full(n_cell, 290.0, jnp.float32)
     qv = jnp.full(n_cell, 7.5e-3, jnp.float32)
     rhod = jnp.full(n_cell, 1.1944, jnp.float32)
@@ -136,8 +215,8 @@ def test_f32_equilibrium_haze_succeeds_at_x_old():
     # drive each drop to its f32 equilibrium first: run the solver many
     # times until masses stop changing, then assert the *settled* state
     # keeps succeeding (pre-fix: settled haze flips to persistent failure)
-    solver = make_condensation_solver(
-        f, n_cell=n_cell, dt=0.1, adaptive=False, use_pallas=False
+    solver = cond_ops.make_condensation_solver(
+        f, n_cell=n_cell, dt=0.1, adaptive=False
     )
     wm = jnp.asarray(4 / 3 * np.pi * (2 * r_dry) ** 3 * 1e3, jnp.float32)
     attrs = dict(
@@ -179,14 +258,10 @@ def test_f32_equilibrium_haze_succeeds_at_x_old():
 
 
 def test_early_exit_honors_rtol_x():
-    """the (default) early-exit bisection must deliver roots within the
+    """the kernel's early-exit bisection must deliver roots within the
     requested rtol_x: kernels built with loose vs tight tolerance agree on
     the diffusion-coordinate root to the LOOSE tolerance, and the tight
     kernel refines further (i.e. rtol_x actually steers the stop)"""
-    import jax.numpy as jnp
-
-    from pysdm_tpu.ops.pallas.condensation import make_fused_masses_new
-
     f = Formulae(seed=44)
     n = 4096
     rng = np.random.default_rng(11)
@@ -210,10 +285,9 @@ def test_early_exit_honors_rtol_x():
 
     roots = {}
     for rtol_x in (1e-2, 1e-7):
-        fused = make_fused_masses_new(
-            f, RH_rtol=1e-7, max_iters=16, bisect_iters=64, rtol_x=rtol_x
+        mass_new, success = masses_new_kernel(
+            _drop_solver(f, rtol_x=rtol_x), *args, interpret=True
         )
-        mass_new, success = fused(*args, interpret=True)
         assert bool(np.asarray(success).all())
         roots[rtol_x] = np.asarray(
             f.diffusion_coordinate.x(jnp.asarray(mass_new)), np.float64

@@ -1,4 +1,4 @@
-"""Committed parity-trace replay (VERDICT r4 item 5): the engine must
+"""Committed parity-trace replay: the engine must
 reproduce tests/data/parity_traces.json bit-for-bit-deterministically
 (box multiplicities exact, parcel thermodynamics to f64 reproducibility).
 The same file drives tools/reference_replay.py against the actual PySDM

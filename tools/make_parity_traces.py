@@ -28,10 +28,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
-
-jax.config.update("jax_platforms", "cpu")  # f64 exactness; never the TPU
-
 import numpy as np
 
 N_STEPS_PARCEL = 20
@@ -244,6 +240,9 @@ def run_warmrain_mini_ours(case):
 
 
 def main():
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")  # the traces are CPU float64
     out_path = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         "tests", "data", "parity_traces.json",

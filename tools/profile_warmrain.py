@@ -1,8 +1,9 @@
-"""Per-dynamic wall-time split of the flagship warm-rain step on TPU
-(the round-3 measurement that pinned condensation at 73%, re-run on the
-Pallas-condensation path). Prints one JSON line of per-dynamic ms/step.
+"""Per-dynamic wall-time split of the 2D warm-rain step (one dispatch and
+device sync per dynamic per step). Prints one JSON line of per-dynamic
+ms/step.
 
-Run solo on the TPU."""
+    python tools/profile_warmrain.py [n_steps]
+"""
 
 import json
 import os
@@ -13,8 +14,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-jax.config.update("jax_compilation_cache_dir", ".jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 2.0)
+from pysdm_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def main():
